@@ -1,0 +1,278 @@
+"""The fused forward render kernel: scene tables and its launch wrapper.
+
+``render_fused_raw`` renders a frame in ONE launch of the CUDA kernel in
+``csrc/render_fwd.cu``, the Hopper counterpart of the TPU kernel
+``uob_raytracer_tpu/kernels/render_fwd.py:_render_kernel``: AA ray
+generation, brute-force nearest hit, the specular bounce loop, one
+soft-shadow pass at the unified shading point, the AA mean and the ARGB
+pack. The scene goes to the kernel as the flat tables ``pack_scene`` and
+``pack_shadow`` build, with the same layouts as the JAX package's.
+
+The kernel's plain torch version, ``render_fused_plain`` (``render_flat``
+and the AA mean), lives here beside it. For a scene on the CPU the wrapper
+runs that plain version; for a CUDA scene it launches the kernel or
+raises, and never falls back. ``LAUNCHES`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..ops.camera import gen_primary_rays
+from ..ops.image import pack_argb
+from ..ops.intersect import prepare_scene
+from ..ops.math3 import cross3, dot3
+from ..ops.shading import shade, shade_cpu_ref
+from ..scene import Scene
+from . import _build
+
+# Kernel launches since import (a plain counter: a run can show that its
+# main path went through the kernel).
+LAUNCHES = 0
+
+TRI_COLS, PRIM_COLS, SPH_COLS, CAM_COLS, SHD_COLS = 19, 7, 12, 21, 13
+# The JAX package routes scenes above this many triangles to its streamed
+# kernel, which has no Hopper counterpart yet. Not a Hopper constant: the
+# streamed kernel's port sets the cut-over from an H100 measurement.
+MAX_TRIANGLES = 512
+# Dynamic shared memory one block may opt into on an H100 (227 KB).
+SMEM_BUDGET_BYTES = 232448
+
+_F = np.float32
+
+
+# --------------------------------------------------------------------------
+# Scene packing: SoA Scene -> flat float32 tables
+# --------------------------------------------------------------------------
+
+def pack_scene(scene: Scene):
+    """Flatten the scene into (tri [T,19], sph [S',12], cam [21]) float32
+    tables. tri row: v0, e1, e2, n(unit), rgb, mat, E=cross(e1,e2).
+    sph row: c, r2, rgb, mat, pad (one zero row when there are no spheres).
+    cam: rot rows r0 r1 r2, camera, light, light_color, indirect."""
+    v0 = scene.tri_v0
+    e1 = scene.tri_v1 - v0
+    e2 = scene.tri_v2 - v0
+    n = cross3(e2, e1)
+    nn = dot3(n, n)[:, None]
+    n = n / torch.sqrt(torch.where(nn == 0, 1.0, nn))
+    tri = torch.cat([v0, e1, e2, n, scene.tri_rgb, scene.tri_mat[:, None],
+                     cross3(e1, e2)], dim=1)
+
+    S = scene.num_spheres
+    if S:
+        sph = torch.cat([
+            scene.sph_center, scene.sph_r2[:, None], scene.sph_rgb,
+            scene.sph_mat[:, None],
+            torch.zeros((S, 4), dtype=torch.float32, device=v0.device)], dim=1)
+    else:
+        sph = torch.zeros((1, SPH_COLS), dtype=torch.float32, device=v0.device)
+
+    cy, sy = torch.cos(scene.yaw), torch.sin(scene.yaw)
+    cp, sp = torch.cos(scene.pitch), torch.sin(scene.pitch)
+    cam = torch.cat([
+        torch.stack([cy, sp * sy, sy * cp, torch.zeros_like(cy), cp, -sp,
+                     -sy, cy * sp, cp * cy]),
+        scene.camera_pos, scene.light_pos, scene.light_color,
+        scene.indirect_light,
+    ])
+    return tri.contiguous(), sph.contiguous(), cam.contiguous()
+
+
+def pack_shadow(scene: Scene, quads):
+    """Pack the occlusion-scan geometry for a quad pairing from
+    ``ops.quads.detect_shadow_quads``: ``n_quads`` parallelogram rows
+    (spanned from triangle a's off-diagonal corner p by its two shared
+    vertices) followed by the unpaired triangles' rows. Row: v0 0:3,
+    e1 3:6, e2 6:9, E=cross(e1,e2) 9:12, mat 12."""
+    pairs, leftover = quads
+    dev = scene.device
+    v = torch.stack([scene.tri_v0, scene.tri_v1, scene.tri_v2], dim=1)
+    rows = []
+    if pairs:
+        pa = torch.tensor([p[0] for p in pairs], device=dev)
+        pc = torch.tensor([p[1] for p in pairs], device=dev)
+        P = v[pa, pc]
+        e1 = v[pa, (pc + 1) % 3] - P
+        e2 = v[pa, (pc + 2) % 3] - P
+        rows.append(torch.cat(
+            [P, e1, e2, cross3(e1, e2), scene.tri_mat[pa][:, None]], dim=1))
+    if leftover:
+        li = torch.tensor(leftover, device=dev)
+        P = scene.tri_v0[li]
+        e1 = scene.tri_v1[li] - P
+        e2 = scene.tri_v2[li] - P
+        rows.append(torch.cat(
+            [P, e1, e2, cross3(e1, e2), scene.tri_mat[li][:, None]], dim=1))
+    return torch.cat(rows, dim=0).contiguous()
+
+
+def shared_bytes(n_tri: int, n_sph: int, n_shd: int) -> int:
+    """Shared memory one block of the kernel stages (must match the
+    launcher in csrc/render_fwd.cu)."""
+    return 4 * (n_tri * (TRI_COLS + PRIM_COLS) + n_sph * SPH_COLS + CAM_COLS
+                + n_shd * SHD_COLS)
+
+
+def launch_params(cfg: RenderConfig, row0: int, rows: int, n_tri: int,
+                  n_sph: int, n_quads: int, n_shd: int):
+    """The launcher's host parameter arrays (ints, floats). The float32
+    constants are computed exactly as the JAX kernel computes them."""
+    A = cfg.aa_rays
+    ints = (cfg.width, cfg.height, row0, rows, cfg.aa_x, cfg.aa_y,
+            cfg.shadow_samples, cfg.bounces, n_tri, n_sph, n_quads, n_shd,
+            int(cfg.cpu_ref), int(cfg.fresnel), int(cfg.quirk_nan_tir))
+    shadow_bias = cfg.cpu_ref_bias if cfg.cpu_ref else cfg.bias
+    floats = (_F(cfg.width * cfg.aa_x / 2.0), _F(cfg.height * cfg.aa_y / 2.0),
+              _F(cfg.effective_focal), _F(cfg.light_spread), _F(shadow_bias),
+              _F(cfg.bias), _F(cfg.ior_glass), _F(cfg.ior_air), _F(1.0 / A),
+              _F(4.0 * np.pi))
+    return ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*[float(f) for f in floats]))
+
+
+def _declare(lib: ctypes.CDLL):
+    fn = lib.render_fwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_float),
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
+    if t.dtype != dtype or t.device.type != "cuda" or not t.is_contiguous() \
+            or tuple(t.shape) != shape:
+        raise ValueError(
+            f"render_fwd: {name} must be a contiguous {dtype} CUDA tensor of "
+            f"shape {shape}; got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+# --------------------------------------------------------------------------
+# The plain torch version (the kernel's semantic twin)
+# --------------------------------------------------------------------------
+
+def _pick_chunk_rows(cfg: RenderConfig, rows: int | None = None,
+                     target_rays: int = 1 << 18) -> int:
+    """Largest divisor of the row count (H by default) keeping
+    rows*W*A near the target ray count per chunk (bounds peak memory of
+    the [rays, triangles] broadcast)."""
+    rows = cfg.height if rows is None else rows
+    per_row = cfg.width * cfg.aa_rays
+    want = max(1, target_rays // per_row)
+    divs = [d for d in range(1, rows + 1) if rows % d == 0]
+    return max(d for d in divs if d <= want) if any(d <= want for d in divs) else 1
+
+
+def render_flat(scene: Scene, cfg: RenderConfig, chunk_rows: int | None = None,
+                row0: int = 0, rows: int | None = None):
+    """Float radiance per AA ray, shaped [rows, W, A, 3], for the row band
+    [row0, row0 + rows) of the cfg-sized image (the whole image by
+    default). Chunks of ``chunk_rows`` rows run one after another."""
+    ds = prepare_scene(scene)
+    rows = cfg.height - row0 if rows is None else rows
+    dirs, gid = gen_primary_rays(cfg, scene.yaw, scene.pitch, row0, rows)
+    W = cfg.width
+    A = dirs.shape[2]
+    if chunk_rows is None:
+        chunk_rows = _pick_chunk_rows(cfg, rows)
+    if rows % chunk_rows:
+        raise ValueError(
+            f"chunk_rows={chunk_rows} must divide the {rows} rows rendered")
+    rays_per_chunk = chunk_rows * W * A
+
+    d_flat = dirs.reshape(-1, rays_per_chunk, 3)
+    gid_flat = gid.reshape(-1).repeat_interleave(A).reshape(-1, rays_per_chunk)
+    start = scene.camera_pos.expand(rays_per_chunk, 3)
+    colors = []
+    for d_c, gid_c in zip(d_flat, gid_flat):
+        if cfg.cpu_ref:
+            colors.append(shade_cpu_ref(ds, cfg, start, d_c))
+        else:
+            colors.append(shade(ds, cfg, start, d_c, gid_c))
+    return torch.stack(colors).reshape(rows, W, A, 3)
+
+
+def render_fused_plain(scene: Scene, cfg: RenderConfig, row0: int = 0,
+                       rows: int | None = None,
+                       chunk_rows: int | None = None):
+    """The plain torch version of ``render_fused_raw``, on the scene's
+    device: the AA mean of ``render_flat`` (``kernels.cl:427``) and its
+    ARGB pack. It scans triangles one by one (no quad merging)."""
+    colors = render_flat(scene, cfg, chunk_rows, row0, rows)
+    img = colors.sum(dim=2) / float(colors.shape[2])
+    return img, pack_argb(img)
+
+
+# --------------------------------------------------------------------------
+# The wrapper
+# --------------------------------------------------------------------------
+
+def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
+                     rows: int | None = None, quads=None):
+    """Forward render of one frame: (image [rows, W, 3] float32, packed
+    [rows, W] uint32), on the scene's device.
+
+    row0/rows render only a row band of the logical cfg-sized image (ray
+    centering and pixel-id RNG stay global). quads: optional static
+    pairing from ``ops.quads.detect_shadow_quads`` — quad-merged occlusion
+    scan (the plain version scans triangles and ignores it). cfg.cpu_ref
+    runs the same kernel in CPU-ref semantics (skeleton.cpp:184-279).
+    A CPU scene runs ``render_fused_plain``."""
+    global LAUNCHES
+    row0 = 0 if row0 is None else int(row0)
+    rows = cfg.height - row0 if rows is None else int(rows)
+    if row0 < 0 or rows < 0 or row0 + rows > cfg.height:
+        raise ValueError(f"row band [{row0}, {row0 + rows}) is outside the "
+                         f"{cfg.height}-row image")
+    dev = scene.device
+    if dev.type == "cpu":
+        return render_fused_plain(scene, cfg, row0, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"render_fused_raw: scene on {dev}; the kernel "
+                         f"needs a CUDA device (its plain version the CPU)")
+
+    n_tri = scene.num_triangles
+    if n_tri > MAX_TRIANGLES:
+        raise NotImplementedError(
+            f"{n_tri} triangles: scenes above {MAX_TRIANGLES} need the "
+            f"streamed kernel, which is not ported yet")
+    # CPU-ref ignores spheres entirely (the vestigial path predates them)
+    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
+    # the kernel has no backward yet: pack without recording a graph
+    with torch.no_grad():
+        tri, sph, cam = pack_scene(scene)
+        shd = None if quads is None else pack_shadow(scene, quads)
+    n_shd = 0 if shd is None else shd.shape[0]
+    n_quads = 0 if quads is None else len(quads[0])
+    smem = shared_bytes(n_tri, n_sph, n_shd)
+    if smem > SMEM_BUDGET_BYTES:
+        raise NotImplementedError(
+            f"scene tables need {smem} B of shared memory, above the "
+            f"{SMEM_BUDGET_BYTES} B a block may use; the streamed kernel "
+            f"is not ported yet")
+    _check("tri", tri, (n_tri, TRI_COLS))
+    _check("sph", sph, (max(scene.num_spheres, 1), SPH_COLS))
+    _check("cam", cam, (CAM_COLS,))
+    if shd is not None:
+        _check("shd", shd, (n_shd, SHD_COLS))
+
+    img = torch.empty((rows, cfg.width, 3), dtype=torch.float32, device=dev)
+    packed = torch.empty((rows, cfg.width), dtype=torch.uint32, device=dev)
+    ints, floats = launch_params(cfg, row0, rows, n_tri, n_sph, n_quads,
+                                 n_shd)
+    launch = _declare(_build.load())
+    with torch.cuda.device(dev):
+        err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
+                     0 if shd is None else shd.data_ptr(), img.data_ptr(),
+                     packed.data_ptr(), ints, floats,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"render_fwd kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return img, packed

@@ -1,0 +1,182 @@
+"""Ray-scene intersection (triangles + analytic spheres) in plain torch.
+
+The counterpart of ``uob_raytracer_tpu/ops/intersect.py``, and with
+``ops/shading.py`` the plain version of the fused render kernel. Semantics
+follow ``single_ray_intersections`` / ``batch_ray_intersections``
+(``Source/kernels.cl:92-241``): Cramer's-rule Moller-Trumbore over all
+triangles with strict nearest-t (ties keep the lowest index), then spheres
+via the catastrophic-cancellation-stable quadratic (q/a, c/q root pairing,
+``kernels.cl:140-143``) with strict < against the triangle best. Brute
+force over the triangle axis: every (ray, triangle) pair is one element of
+an [N, T] tensor.
+
+Degenerate denominators are routed through guarded values; they are
+rejected by the same comparisons that reject them in the reference.
+The triangle-axis sharding of the JAX package is not part of this module.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..scene import Scene
+from .math3 import cross3, det3, dot3, normalize3
+
+_INF = float("inf")
+_IMAX = 2**31 - 1
+
+
+class DeviceScene(NamedTuple):
+    """Derived, render-ready scene tensors. Normals are recomputed from the
+    vertices here."""
+
+    v0: torch.Tensor    # [T,3]
+    e1: torch.Tensor    # [T,3]
+    e2: torch.Tensor    # [T,3]
+    n: torch.Tensor     # [T,3] unit normals, normalize(cross(e2,e1))
+    rgb: torch.Tensor   # [T,3]
+    mat: torch.Tensor   # [T]
+    sph_c: torch.Tensor   # [S,3]
+    sph_r2: torch.Tensor  # [S]
+    sph_rgb: torch.Tensor  # [S,3]
+    sph_mat: torch.Tensor  # [S]
+    light_pos: torch.Tensor
+    light_color: torch.Tensor
+    indirect: torch.Tensor
+    camera_pos: torch.Tensor
+
+    @property
+    def num_spheres(self) -> int:
+        return self.sph_c.shape[0]
+
+
+class Hit(NamedTuple):
+    hit: torch.Tensor      # bool [N]
+    pos: torch.Tensor      # [N,3]
+    normal: torch.Tensor   # [N,3]
+    rgb: torch.Tensor      # [N,3]
+    mat: torch.Tensor      # [N]
+    t: torch.Tensor        # [N]
+    obj_id: torch.Tensor   # [N] int64: triangle index, -2 sphere, -1 miss
+
+
+def prepare_scene(scene: Scene) -> DeviceScene:
+    e1 = scene.tri_v1 - scene.tri_v0
+    e2 = scene.tri_v2 - scene.tri_v0
+    n = cross3(e2, e1)
+    nn = dot3(n, n)
+    n = n / torch.sqrt(torch.where(nn == 0, 1.0, nn))[..., None]
+    return DeviceScene(
+        v0=scene.tri_v0, e1=e1, e2=e2, n=n,
+        rgb=scene.tri_rgb, mat=scene.tri_mat,
+        sph_c=scene.sph_center, sph_r2=scene.sph_r2,
+        sph_rgb=scene.sph_rgb, sph_mat=scene.sph_mat,
+        light_pos=scene.light_pos, light_color=scene.light_color,
+        indirect=scene.indirect_light, camera_pos=scene.camera_pos,
+    )
+
+
+def _tri_tuv(ds: DeviceScene, start, d):
+    """Per-triangle (t, u, v, degenerate) tensors of shape [N, T]."""
+    dN = d[:, None, :]
+    b = start[:, None, :] - ds.v0[None]
+    e1, e2 = ds.e1[None], ds.e2[None]
+    detA = det3(-dN, e1, e2)
+    degenerate = detA == 0
+    recip = 1.0 / torch.where(degenerate, 1.0, detA)
+    t = det3(b, e1, e2) * recip
+    u = det3(-dN, b, e2) * recip
+    v = det3(-dN, e1, b) * recip
+    return t, u, v, degenerate
+
+
+def _sphere_roots(ds: DeviceScene, start, d):
+    """Stable quadratic roots (x_min, x_max, no_solution) of shape [N, S]."""
+    L = start[:, None, :] - ds.sph_c[None]
+    a = dot3(d, d)[:, None]
+    b = 2.0 * dot3(d[:, None, :], L)
+    c = dot3(L, L) - ds.sph_r2[None]
+    disc = b * b - 4.0 * a * c
+    no_sol = disc < 0
+    sq = torch.sqrt(torch.where(no_sol, 1.0, disc))
+    q = torch.where(b > 0, -0.5 * (b + sq), -0.5 * (b - sq))
+    q_zero = q == 0
+    x0 = q / torch.where(a == 0, 1.0, a)  # a = |d|^2 > 0 in practice
+    # q == 0 implies c == 0 (ray origin on the sphere): the reference's
+    # c/q = 0/0 NaN root collapses to the x0 = 0 candidate.
+    x1 = torch.where(q_zero, x0, c / torch.where(q_zero, 1.0, q))
+    return torch.minimum(x0, x1), torch.maximum(x0, x1), no_sol
+
+
+def _best_triangle(ds: DeviceScene, start, d):
+    """Nearest accepted triangle: (t [N] (inf if none), idx [N] (_IMAX if
+    none), pos, normal, rgb [N,3], mat [N])."""
+    t, u, v, degenerate = _tri_tuv(ds, start, d)
+    valid = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)) & ~degenerate
+    t_m = torch.where(valid, t, _INF)
+    t_m = torch.where(torch.isnan(t_m), _INF, t_m)
+    li = torch.argmin(t_m, dim=1)   # the first minimum: lowest index wins
+    tb = t_m.gather(1, li[:, None])[:, 0]
+    hit = torch.isfinite(tb)
+    u_b = torch.where(hit, u.gather(1, li[:, None])[:, 0], 0.0)
+    v_b = torch.where(hit, v.gather(1, li[:, None])[:, 0], 0.0)
+    pos = ds.v0[li] + u_b[:, None] * ds.e1[li] + v_b[:, None] * ds.e2[li]
+    h3 = hit[:, None]
+    return (tb,
+            torch.where(hit, li, _IMAX),
+            torch.where(h3, pos, 0.0),
+            torch.where(h3, ds.n[li], 0.0),
+            torch.where(h3, ds.rgb[li], 0.0),
+            torch.where(hit, ds.mat[li], 1.0))
+
+
+def intersect(ds: DeviceScene, start, d) -> Hit:
+    """Nearest hit for rays (start [N,3], d [N,3])."""
+    tri_t, idx, pos, normal, rgb, mat = _best_triangle(ds, start, d)
+    t_best, obj = tri_t, idx
+
+    if ds.num_spheres:
+        xmin, xmax, no_sol = _sphere_roots(ds, start, d)
+        cand = torch.where(xmin >= 0, xmin, xmax)
+        ok = ~no_sol & (cand >= 0)
+        st = torch.where(ok, cand, _INF)
+        st = torch.where(torch.isnan(st), _INF, st)
+        sph_idx = torch.argmin(st, dim=1)
+        sph_t = st.gather(1, sph_idx[:, None])[:, 0]
+        sphere_wins = sph_t < tri_t
+        sph_t_safe = torch.where(torch.isfinite(sph_t), sph_t, 0.0)
+        sph_pos = start + d * sph_t_safe[:, None]
+        sph_n = normalize3(sph_pos - ds.sph_c[sph_idx], torch.isfinite(sph_t))
+        w3 = sphere_wins[:, None]
+        pos = torch.where(w3, sph_pos, pos)
+        normal = torch.where(w3, sph_n, normal)
+        rgb = torch.where(w3, ds.sph_rgb[sph_idx], rgb)
+        mat = torch.where(sphere_wins, ds.sph_mat[sph_idx], mat)
+        t_best = torch.where(sphere_wins, sph_t, tri_t)
+        obj = torch.where(sphere_wins, -2, idx)
+
+    hit_any = torch.isfinite(t_best)
+    obj = torch.where(hit_any, obj, -1)
+    return Hit(hit=hit_any, pos=pos, normal=normal, rgb=rgb, mat=mat,
+               t=t_best, obj_id=obj)
+
+
+def in_shadow(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:
+    """Occlusion toward the light (``kernels.cl:243-311``): glass (mat == -1)
+    casts no shadow; an occluder counts at t >= 0 with |t*d|^2 < radius_sq."""
+    t, u, v, degenerate = _tri_tuv(ds, start, d)
+    dist = t * t * dot3(d, d)[:, None]
+    occ = ((t >= 0) & (dist < radius_sq[:, None])
+           & (u >= 0) & (v >= 0) & ((u + v) <= 1) & ~degenerate
+           & (ds.mat[None] != -1.0))
+    occluded = torch.any(occ, dim=1)
+    if ds.num_spheres:
+        xmin, xmax, no_sol = _sphere_roots(ds, start, d)
+        dd = dot3(d, d)[:, None]
+        rs = radius_sq[:, None]
+        occ_s = (~no_sol & (ds.sph_mat[None] != -1.0)
+                 & (((xmin >= 0) & (xmin * xmin * dd < rs))
+                    | ((xmax >= 0) & (xmax * xmax * dd < rs))))
+        occluded = occluded | torch.any(occ_s, dim=1)
+    return occluded

@@ -62,7 +62,7 @@ def _assert_scene_equal(tsc, jleaves):
 @pytest.mark.parametrize("shading", ["device", "host"])
 def test_cornell_box_bit_identical(spheres, masked, shading):
     tsc = trt.cornell_box(spheres=spheres, masked_sphere=masked,
-                          shading=TShading(shading))
+                          shading=TShading(shading), device="cpu")
     jsc = jrt.cornell_box(spheres=spheres, masked_sphere=masked,
                           shading=JShading(shading), as_numpy=True)
     assert tsc.num_triangles == 26
@@ -87,7 +87,7 @@ def test_load_obj_and_add_triangles():
                     jrt.load_obj(ICO, mat_code=1.0)):
         np.testing.assert_array_equal(a, b)
     verts, rgb, mat = jrt.load_obj(ICO)
-    tsc = trt.add_triangles(trt.cornell_box(), verts, rgb, mat)
+    tsc = trt.add_triangles(trt.cornell_box(device="cpu"), verts, rgb, mat)
     jsc = jrt.add_triangles(jrt.cornell_box(), verts, rgb, mat)
     assert tsc.num_triangles == 26 + 20
     _assert_scene_equal(tsc, jsc)
@@ -126,12 +126,12 @@ def test_npz_jax_to_torch(tmp_path):
     path = str(tmp_path / "jax_scene.npz")
     jsc = jscene.Scene(**{k: np.asarray(v) for k, v in _perturbed_leaves(1).items()})
     jscene.save_scene(path, jsc)
-    _assert_scene_equal(tscene.load_scene(path), jsc)
+    _assert_scene_equal(tscene.load_scene(path, "cpu"), jsc)
 
 
 def test_npz_torch_to_jax(tmp_path):
     path = str(tmp_path / "torch_scene.npz")
-    tsc = tscene.scene_from_numpy(_perturbed_leaves(2))
+    tsc = tscene.scene_from_numpy(_perturbed_leaves(2), "cpu")
     tscene.save_scene(path, tsc)
     jsc = jscene.load_scene(path)
     _assert_scene_equal(tsc, jsc)

@@ -189,7 +189,7 @@ def test_intersect_matches(spheres):
     start, d, _ = _random_rays(5)
     hj = jint.intersect(jint.prepare_scene(jrt.cornell_box(
         spheres=spheres, masked_sphere=spheres)), jnp.asarray(start), jnp.asarray(d))
-    ht = tint.intersect(tint.prepare_scene(scene_from_numpy(leaves)),
+    ht = tint.intersect(tint.prepare_scene(scene_from_numpy(leaves, "cpu")),
                         torch.from_numpy(start), torch.from_numpy(d))
     same = ht.obj_id.numpy() == np.asarray(hj.obj_id)
     assert same.mean() >= 0.999, f"{1 - same.mean():.4%} of rays differ"
@@ -209,7 +209,7 @@ def test_in_shadow_matches(spheres):
     oj = np.asarray(jint.in_shadow(
         jint.prepare_scene(jrt.cornell_box(spheres=spheres, masked_sphere=spheres)),
         jnp.asarray(start), jnp.asarray(d), jnp.asarray(r2)))
-    ot = tint.in_shadow(tint.prepare_scene(scene_from_numpy(leaves)),
+    ot = tint.in_shadow(tint.prepare_scene(scene_from_numpy(leaves, "cpu")),
                         torch.from_numpy(start), torch.from_numpy(d),
                         torch.from_numpy(r2)).numpy()
     assert 0.1 < oj.mean() < 0.9
@@ -221,13 +221,13 @@ def test_in_shadow_matches(spheres):
 # --------------------------------------------------------------------------
 
 def test_detect_shadow_quads_same_pairing():
-    q_t = tquads.detect_shadow_quads(trt.cornell_box())
+    q_t = tquads.detect_shadow_quads(trt.cornell_box(device="cpu"))
     q_j = jquads.detect_shadow_quads(jrt.cornell_box())
     assert q_t == q_j
     pairs, leftover = q_t
     assert len(pairs) == 11 and len(leftover) == 4
     verts, rgb, mat = trt.load_obj(ICO, mat_code=1.0)
-    q_t = tquads.detect_shadow_quads(trt.add_triangles(trt.cornell_box(),
+    q_t = tquads.detect_shadow_quads(trt.add_triangles(trt.cornell_box(device="cpu"),
                                                        verts, rgb, mat))
     q_j = jquads.detect_shadow_quads(jrt.add_triangles(jrt.cornell_box(),
                                                        verts, rgb, mat))
@@ -235,7 +235,7 @@ def test_detect_shadow_quads_same_pairing():
 
 
 def test_validate_shadow_quads_rejects_stale():
-    sc = trt.cornell_box()
+    sc = trt.cornell_box(device="cpu")
     q = tquads.detect_shadow_quads(sc)
     tquads.validate_shadow_quads(sc, q)          # fresh pairing passes
     tquads.validate_shadow_quads(sc, None)

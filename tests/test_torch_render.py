@@ -36,7 +36,8 @@ def test_plain_matches_jnp_baseline_features(name):
     cfg_t = dataclasses.replace(trt.baseline_configs()[name], width=64, height=64)
     cfg_j = dataclasses.replace(jrt.baseline_configs()[name], width=64, height=64)
     ts = trt.cornell_box(spheres=not cfg_t.cpu_ref,
-                         shading=ShadingModel(cfg_t.shading.value))
+                         shading=ShadingModel(cfg_t.shading.value),
+                         device="cpu")
     js = jrt.cornell_box(spheres=not cfg_j.cpu_ref,
                          shading=JShading(cfg_j.shading.value))
     img_t = trt.render_image(ts, cfg_t, backend="torch")
@@ -48,17 +49,19 @@ def test_plain_matches_jnp_baseline_features(name):
 
 def _ico_scene():
     verts, rgb, mat = trt.load_obj(ICO, mat_code=1.0)
-    return trt.add_triangles(trt.cornell_box(), verts, rgb, mat)
+    return trt.add_triangles(trt.cornell_box(device="cpu"), verts, rgb, mat)
 
 
 @pytest.mark.parametrize("golden", ["cornell_64_full", "cornell_64_cpuref",
                                     "cornell_ico_64"])
 def test_render_matches_golden(golden):
     if golden == "cornell_64_cpuref":
-        scene = trt.cornell_box(spheres=False, shading=ShadingModel.HOST)
+        scene = trt.cornell_box(spheres=False, shading=ShadingModel.HOST,
+                                device="cpu")
         cfg = trt.RenderConfig(width=64, height=64, cpu_ref=True)
     else:
-        scene = _ico_scene() if golden == "cornell_ico_64" else trt.cornell_box()
+        scene = (_ico_scene() if golden == "cornell_ico_64"
+                 else trt.cornell_box(device="cpu"))
         cfg = trt.RenderConfig(width=64, height=64)
     g = np.load(os.path.join(GOLDEN_DIR, golden + ".npz"))
     out = trt.render(scene, cfg)
@@ -67,7 +70,7 @@ def test_render_matches_golden(golden):
 
 
 def test_render_packed_and_chunks():
-    sc = trt.cornell_box()
+    sc = trt.cornell_box(device="cpu")
     cfg = trt.RenderConfig(width=32, height=16, shadow_samples=2, bounces=2)
     out = trt.render(sc, cfg)
     assert out.packed.dtype == torch.uint32
@@ -82,7 +85,7 @@ def test_render_packed_and_chunks():
 
 
 def test_backend_selection():
-    sc = trt.cornell_box()
+    sc = trt.cornell_box(device="cpu")
     cfg = trt.RenderConfig(width=8, height=8, shadow_samples=1, bounces=1)
     with pytest.raises(ValueError, match="CUDA device"):
         trt.render_image(sc, cfg, backend="cuda")
@@ -95,7 +98,7 @@ def test_backend_selection():
 
 
 def test_render_validates_passed_quads():
-    sc = trt.cornell_box()
+    sc = trt.cornell_box(device="cpu")
     cfg = trt.RenderConfig(width=8, height=8, shadow_samples=1, bounces=0)
     q = detect_shadow_quads(sc)
     trt.render(sc, cfg, shadow_quads=q)
@@ -111,7 +114,7 @@ def test_cli_configs_and_render(tmp_path, capsys):
     assert [ln.split(":")[0] for ln in lines] == list(trt.baseline_configs())
     out = tmp_path / "frame.bmp"
     cli.main(["render", "--config", "cpu_ref_256", "--width", "16",
-              "--backend", "torch", "-o", str(out)])
+              "--backend", "torch", "--device", "cpu", "-o", str(out)])
     assert "Rendertime" in capsys.readouterr().out
     data = out.read_bytes()
     assert data[:2] == b"BM" and len(data) == 54 + 16 * 16 * 4
@@ -124,7 +127,7 @@ def test_imports_and_renders_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['uob_raytracer_tpu'] = None\n"
         "import uob_raytracer_tpu_torch as rt\n"
-        "out = rt.render(rt.cornell_box(), rt.RenderConfig(width=16, height=16))\n"
+        "out = rt.render(rt.cornell_box(device='cpu'), rt.RenderConfig(width=16, height=16))\n"
         "assert tuple(out.image.shape) == (16, 16, 3)\n"
         "assert 'jaxlib' not in sys.modules\n"
         "print('ok', float(out.image.mean()))\n")

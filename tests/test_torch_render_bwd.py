@@ -1,0 +1,375 @@
+"""Port tests: the path-replay backward module
+(``uob_raytracer_tpu_torch/kernels/render_bwd.py``) and the differentiable
+``render_image`` (``render.py``'s ``torch.autograd.Function``) against the
+JAX package's, on the CPU, where the wrappers run the kernels' plain
+versions. Tests marked ``cuda`` launch the CUDA kernels and skip without a
+card.
+
+Tolerances: the K2 module leaf by leaf as max|a-b| / max(max|ref|, 1)
+within 1e-4 of the JAX kernel in interpret mode (tests/test_bwd_kernel.py);
+end-to-end gradients within 2e-3 of max|ref| per leaf
+(tests/test_replay.py:52-75: the replay's gradient against full autodiff).
+"""
+import dataclasses
+import os
+import re
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import uob_raytracer_tpu as jrt
+from uob_raytracer_tpu.kernels.render_bwd import render_replay_bwd as j_replay_bwd
+from uob_raytracer_tpu.kernels.render_fwd import render_fused_res as j_fused_res
+from uob_raytracer_tpu.render import render_image as j_render_image
+import uob_raytracer_tpu_torch as trt
+from uob_raytracer_tpu_torch import cli
+from uob_raytracer_tpu_torch.kernels import render_bwd as tbwd
+from uob_raytracer_tpu_torch.kernels import render_fwd as tfwd
+from uob_raytracer_tpu_torch.ops.intersect import _sphere_roots, prepare_scene
+from uob_raytracer_tpu_torch.ops import replay as treplay
+from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads
+from uob_raytracer_tpu_torch.scene import Scene
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+LEAVES = tuple(f.name for f in dataclasses.fields(Scene))
+
+
+def _grad_scene(scene, names=LEAVES):
+    """The scene with fresh leaves that require a gradient."""
+    return dataclasses.replace(scene, **{
+        k: getattr(scene, k).detach().clone().requires_grad_(True)
+        for k in names})
+
+
+def _grads(loss, scene, names=LEAVES):
+    return dict(zip(names, torch.autograd.grad(
+        loss, [getattr(scene, k) for k in names], allow_unused=True)))
+
+
+# --------------------------------------------------------------------------
+# The K2 module
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bounces", [0, 1])
+def test_plain_backward_matches_jax_kernel(bounces):
+    """render_replay_bwd_plain against the JAX backward kernel (Pallas
+    interpret mode) on the JAX forward kernel's record."""
+    kw = dict(width=128, height=8, aa_x=2, aa_y=2, shadow_samples=4,
+              bounces=bounces)
+    jsc, cfg_j = jrt.cornell_box(), jrt.RenderConfig(**kw)
+    img, _, jres = j_fused_res(jsc, cfg_j, interpret=True)
+    g = np.random.RandomState(bounces).standard_normal(img.shape).astype(np.float32)
+    ref = j_replay_bwd(jsc, cfg_j, jres, jnp.asarray(g), interpret=True)
+    tsc, cfg_t = trt.cornell_box(device="cpu"), trt.RenderConfig(**kw)
+    res = treplay.residuals_from_numpy(*(np.asarray(x) for x in jres), "cpu")
+    got, primal = tbwd.render_replay_bwd_plain(tsc, cfg_t, res,
+                                               torch.from_numpy(g),
+                                               return_primal=True)
+    for k in LEAVES:
+        a, b = np.asarray(getattr(ref, k)), getattr(got, k).numpy()
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-4 * max(np.abs(a).max(), 1.0), k
+    assert torch.allclose(primal, treplay.replay_forward(tsc, cfg_t, res),
+                          atol=1e-4)
+    np.testing.assert_allclose(primal.numpy(), np.asarray(img), atol=2e-5)
+
+
+def test_wrapper_on_cpu_runs_plain_version():
+    """A CPU scene takes the plain version: no launch, the same gradient;
+    other devices are refused."""
+    sc = trt.cornell_box(device="cpu")
+    cfg = trt.RenderConfig(width=32, height=8, shadow_samples=2, bounces=2)
+    _, _, res = tfwd.render_fused_res(sc, cfg)
+    g = torch.ones((8, 32, 3))
+    before = tbwd.LAUNCHES
+    got = tbwd.render_replay_bwd(sc, cfg, res, g)
+    assert tbwd.LAUNCHES == before
+    ref = tbwd.render_replay_bwd_plain(sc, cfg, res, g)
+    assert all(torch.equal(getattr(got, k), getattr(ref, k)) for k in LEAVES)
+    assert not got.tri_mat.any() and not got.sph_mat.any()
+    assert got.tri_v0.abs().max() > 0 and got.light_pos.abs().max() > 0
+    with pytest.raises(ValueError, match="CUDA"):
+        tbwd.render_replay_bwd(sc.to("meta"), cfg, res, g)
+    with pytest.raises(ValueError, match="outside"):
+        tbwd.render_replay_bwd(sc, cfg, res, g, row0=4, rows=8)
+
+
+def test_table_cotangents_layout():
+    """The kernel's partial sums land in pack_scene's columns: object rows
+    of 16 (v0 e1 e2 n rgb | r2), then the 21 camera columns."""
+    n_tri, n_sph = 3, 2
+    cols = (n_tri + n_sph) * tbwd.GRAD_COLS + tfwd.CAM_COLS
+    partial = torch.arange(2 * cols, dtype=torch.float32).reshape(2, cols)
+    sums = partial.sum(0)
+    dtri, dsph, dcam = tbwd.table_cotangents(partial, n_tri, n_sph, n_sph)
+    assert dtri.shape == (n_tri, tfwd.TRI_COLS) and dsph.shape == (n_sph, tfwd.SPH_COLS)
+    assert torch.equal(dtri[1, :15], sums[16:31]) and not dtri[:, 15:].any()
+    s0 = sums[n_tri * 16:n_tri * 16 + 16]
+    assert torch.equal(dsph[0, 0:3], s0[0:3]) and dsph[0, 3] == s0[15]
+    assert torch.equal(dsph[0, 4:7], s0[12:15]) and not dsph[:, 7:].any()
+    assert torch.equal(dcam, sums[-21:])
+    # no spheres: pack_scene's one zero row gets a zero cotangent
+    cols = n_tri * tbwd.GRAD_COLS + tfwd.CAM_COLS
+    _, dsph, _ = tbwd.table_cotangents(torch.ones((4, cols)), n_tri, 0, 1)
+    assert dsph.shape == (1, tfwd.SPH_COLS) and not dsph.any()
+
+
+def test_launch_params_and_budget():
+    cfg = trt.RenderConfig(width=96, height=20, aa_x=3, fresnel=True)
+    ints, floats = tbwd.launch_params(cfg, 4, 8, 26, 2, True)
+    assert list(ints) == [96, 20, 4, 8, 3, 2, 10, 10, 26, 2, 0, 1, 0, 1]
+    assert [np.float32(f) for f in floats] == [
+        np.float32(96 * 3 / 2.0), np.float32(20 * 2 / 2.0),
+        np.float32(cfg.effective_focal), np.float32(1e-4), np.float32(1.52),
+        np.float32(1.0), np.float32(4 * np.pi)]
+    assert tbwd.shared_bytes(28) < 48 * 1024
+    assert cfg.bounces <= tbwd.MAX_BOUNCES
+
+
+# --------------------------------------------------------------------------
+# End to end: render_image through the autograd Function
+# --------------------------------------------------------------------------
+
+CFG_KW = dict(width=128, height=16, shadow_samples=4, bounces=4)
+
+
+@pytest.fixture(scope="module")
+def fused_grads():
+    """Gradients of mean(render_image) through the Function on a CPU scene."""
+    sc = _grad_scene(trt.cornell_box(device="cpu"))
+    loss = trt.render_image(sc, trt.RenderConfig(**CFG_KW)).mean()
+    return _grads(loss, sc)
+
+
+def test_function_gradients_match_jax_pallas_backend(fused_grads):
+    cfg_j = jrt.RenderConfig(**CFG_KW)
+    ref = jax.grad(lambda s: jnp.mean(j_render_image(s, cfg_j, backend="pallas")))(
+        jrt.cornell_box())
+    for k in LEAVES:
+        a, b = np.asarray(getattr(ref, k)), fused_grads[k].numpy()
+        assert a.shape == b.shape and np.isfinite(b).all(), k
+        assert np.abs(a - b).max() <= 2e-3 * (np.abs(a).max() + 1e-12), k
+
+
+def test_function_gradients_match_torch_backend(fused_grads):
+    """The third witness: plain autograd through the full pipeline."""
+    sc = _grad_scene(trt.cornell_box(device="cpu"))
+    loss = trt.render_image(sc, trt.RenderConfig(**CFG_KW), backend="torch").mean()
+    ref = _grads(loss, sc)
+    for k in LEAVES:
+        if ref[k] is None:     # the pipeline never reads the material codes
+            assert k in ("tri_mat", "sph_mat") and not fused_grads[k].any()
+            continue
+        a, b = ref[k].numpy(), fused_grads[k].numpy()
+        assert np.abs(a - b).max() <= 2e-3 * (np.abs(a).max() + 1e-12), k
+
+
+def test_function_gradients_are_zero_for_material_codes(fused_grads):
+    for k in ("tri_mat", "sph_mat"):
+        assert fused_grads[k] is not None and not fused_grads[k].any()
+    # a vertex gradient flows through the recomputed normals
+    # (tests/test_grad.py:177)
+    assert fused_grads["tri_v0"].abs().max() > 1e-6
+    assert fused_grads["tri_v1"].abs().max() > 1e-6
+    assert fused_grads["light_pos"].abs().max() > 0
+
+
+@pytest.mark.parametrize("kw", [dict(bounces=3, quirk_nan_tir=True),
+                                dict(bounces=4, fresnel=True),
+                                dict(cpu_ref=True)])
+def test_function_gradients_finite(kw):
+    sc = _grad_scene(trt.cornell_box(device="cpu"))
+    cfg = trt.RenderConfig(width=16, height=16, shadow_samples=2, **kw)
+    for backend in ("auto", "torch"):
+        g = _grads(trt.render_image(sc, cfg, backend=backend).mean(), sc)
+        assert all(torch.isfinite(v).all() for v in g.values() if v is not None)
+
+
+def test_tangent_ray_sphere_grads_finite():
+    """Exact-tangent sphere hits (disc == 0) must not leak sqrt'(0) = inf
+    into the sphere-quadratic gradients (tests/test_grad.py:149)."""
+    sc = trt.cornell_box(device="cpu")
+    r2 = torch.tensor([1.0], requires_grad=True)
+    sc = dataclasses.replace(
+        sc, sph_center=torch.tensor([[1.0, 0.0, 0.0]]), sph_r2=r2,
+        sph_rgb=torch.ones((1, 3)), sph_mat=torch.ones((1,)))
+    # start=(0,0,-2), d=(0,0,1), center=(1,0,0), r2=1: disc = 16-16 = 0
+    start = torch.tensor([[0.0, 0.0, -2.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0]])
+    xmin, xmax, no_sol = _sphere_roots(prepare_scene(sc), start, d)
+    v = torch.where(no_sol, 0.0, xmin).sum()
+    (g,) = torch.autograd.grad(v, r2)
+    assert torch.isfinite(v) and torch.isfinite(g).all()
+    # and through the replay's hit reconstruction
+    table = treplay.build_object_table(sc)
+    ids = torch.tensor([sc.num_triangles], dtype=torch.int32)
+    pos, *_ = treplay._hit_from_row(treplay._gather_rows(table, ids),
+                                    sc.num_triangles, ids, start, d)
+    (g,) = torch.autograd.grad(pos.sum(), r2)
+    assert torch.isfinite(g).all()
+
+
+def test_function_mechanics(monkeypatch):
+    """No record without a gradient; packed is not differentiable; a row
+    band and a subset of leaves work; quads enter the forward only."""
+    trender = sys.modules["uob_raytracer_tpu_torch.render"]   # not the function
+    sc = trt.cornell_box(device="cpu")
+    cfg = trt.RenderConfig(width=32, height=16, shadow_samples=2, bounces=2)
+    calls = []
+    real = trender.render_fused_res_plain
+    monkeypatch.setattr(trender, "render_fused_res_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out = trt.render(sc, cfg)
+    assert not calls and not out.image.requires_grad
+    live = _grad_scene(sc, ("light_pos", "tri_rgb"))
+    with torch.no_grad():
+        trt.render(live, cfg)
+    assert not calls
+    out = trt.render(live, cfg, shadow_quads=detect_shadow_quads(sc))
+    assert calls == [1] and out.image.requires_grad
+    assert not out.packed.requires_grad
+    assert torch.equal(out.image.detach(), trt.render(sc, cfg).image)
+    g = _grads(out.image.square().mean(), live, ("light_pos", "tri_rgb"))
+    assert g["light_pos"].shape == (3,) and g["tri_rgb"].abs().max() > 0
+    # a row band's gradient is the full frame's with the other rows' zeroed
+    band = trt.render_image(live, cfg, row0=4, rows=8)
+    assert band.shape == (8, 32, 3)
+    assert torch.equal(band.detach(), out.image.detach()[4:12])
+    gb = _grads(band.sum(), live, ("light_pos",))["light_pos"]
+    gf = _grads(trt.render_image(live, cfg)[4:12].sum(), live,
+                ("light_pos",))["light_pos"]
+    assert torch.allclose(gb, gf, rtol=1e-4, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# The default device, and the import rule
+# --------------------------------------------------------------------------
+
+def test_default_device_is_cuda(tmp_path):
+    """cornell_box(), scene_from_numpy(...) and load_scene(...) with no
+    device ask for a CUDA device: without one they raise torch's own error,
+    which names CUDA; nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        assert trt.cornell_box().device.type == "cuda"
+        return
+    from uob_raytracer_tpu_torch import scene as tscene
+    leaves = tscene.scene_to_numpy(trt.cornell_box(device="cpu"))
+    path = str(tmp_path / "s.npz")
+    tscene.save_scene(path, trt.cornell_box(device="cpu"))
+    for make in (trt.cornell_box, lambda: tscene.scene_from_numpy(leaves),
+                 lambda: tscene.load_scene(path)):
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            make()
+    assert tscene.load_scene(path, "cpu").device.type == "cpu"
+
+
+def test_cli_without_device_cpu_does_not_render_on_cpu(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("with a card the CLI renders on it")
+    out = tmp_path / "f.bmp"
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        cli.main(["render", "--width", "8", "-o", str(out)])
+    assert not out.exists() and "Rendertime" not in capsys.readouterr().out
+    cli.main(["render", "--width", "8", "--device", "cpu", "-o", str(out)])
+    assert out.exists() and "(cpu)" in capsys.readouterr().out
+
+
+def test_port_imports_no_jax():
+    """No module of the port, and not chip_smoke.py, imports jax or the JAX
+    package."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "uob_raytracer_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|optax|uob_raytracer_tpu)(\.|\s|$)",
+                     re.M)
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+# --------------------------------------------------------------------------
+# On the card (skip without one): the CUDA kernels against their plain versions
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _leafwise(ref, got):
+    return max(((getattr(ref, k) - getattr(got, k)).abs().max().item()
+                / max(getattr(ref, k).abs().max().item(), 1.0))
+               for k in LEAVES if getattr(ref, k).numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"cpu_ref": True},
+                                {"fresnel": True, "bounces": 4}])
+def test_kernel_record_matches_plain_on_card(cuda_device, kw):
+    sc = trt.cornell_box(device=cuda_device)
+    cfg = trt.RenderConfig(width=96, height=20, **kw)
+    before = tfwd.LAUNCHES
+    img, packed, res = tfwd.render_fused_res(sc, cfg)
+    raw, _ = tfwd.render_fused_raw(sc, cfg)
+    torch.cuda.synchronize()
+    assert tfwd.LAUNCHES == before + 2
+    assert torch.equal(img, raw)           # recording changes nothing
+    ref = tfwd.render_fused_res_plain(sc, cfg)[2]
+    for a, b in zip(res, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.numel():
+            assert (a != b).float().mean() <= 0.005
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"bounces": 0}, {"bounces": 1},
+                                {"cpu_ref": True}])
+def test_backward_kernel_matches_plain_on_card(cuda_device, kw):
+    sc = trt.cornell_box(device=cuda_device)
+    cfg = trt.RenderConfig(width=96, height=20, **kw)
+    _, _, res = tfwd.render_fused_res(sc, cfg)
+    g = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (20, 96, 3)).astype(np.float32)).to(cuda_device)
+    before = tbwd.LAUNCHES
+    got, primal = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    again = tbwd.render_replay_bwd(sc, cfg, res, g)
+    torch.cuda.synchronize()
+    assert tbwd.LAUNCHES == before + 2
+    ref, ref_primal = tbwd.render_replay_bwd_plain(sc, cfg, res, g,
+                                                   return_primal=True)
+    assert _leafwise(ref, got) <= 1e-4
+    assert torch.allclose(primal, ref_primal, atol=1e-4)
+    # no float atomics: two runs give bit-equal gradients
+    assert all(torch.equal(getattr(got, k), getattr(again, k)) for k in LEAVES)
+    # a row band of the record gives that band's gradient
+    band = treplay.Residuals(*(t[..., 4:12, :].contiguous() for t in res))
+    got_b = tbwd.render_replay_bwd(sc, cfg, band, g[4:12].contiguous(),
+                                   row0=4, rows=8)
+    ref_b = tbwd.render_replay_bwd_plain(sc, cfg, band, g[4:12], 4, 8)
+    assert _leafwise(ref_b, got_b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_function_on_card_launches_both_kernels(cuda_device):
+    sc = _grad_scene(trt.cornell_box(device=cuda_device))
+    cfg = trt.RenderConfig(width=96, height=20, bounces=1)
+    f0, b0 = tfwd.LAUNCHES, tbwd.LAUNCHES
+    got = _grads(trt.render_image(sc, cfg).mean(), sc)
+    assert (tfwd.LAUNCHES, tbwd.LAUNCHES) == (f0 + 1, b0 + 1)
+    ref = _grads(trt.render_image(sc, cfg, backend="torch").mean(), sc)
+    for k in LEAVES:
+        if ref[k] is None:
+            assert not got[k].any()
+            continue
+        assert ((ref[k] - got[k]).abs().max()
+                <= 2e-3 * (ref[k].abs().max() + 1e-12)), k
+    deep = trt.RenderConfig(width=16, height=8, bounces=tbwd.MAX_BOUNCES + 1)
+    with pytest.raises(ValueError, match="bounces"):
+        trt.render_image(sc, deep).mean().backward()

@@ -35,7 +35,7 @@ def _scenes(kind):
         rs = np.random.RandomState(7)
         leaves = {k: (v + rs.normal(0, 0.02, v.shape)).astype(np.float32)
                   for k, v in leaves.items()}
-    return (scene_from_numpy(leaves),
+    return (scene_from_numpy(leaves, "cpu"),
             jscene.Scene(**{k: jnp.asarray(v) for k, v in leaves.items()}))
 
 
@@ -52,14 +52,14 @@ def test_pack_scene_matches(kind):
 
 
 def test_pack_scene_no_spheres():
-    sph = tfwd.pack_scene(trt.cornell_box(spheres=False))[1]
+    sph = tfwd.pack_scene(trt.cornell_box(spheres=False, device="cpu"))[1]
     assert sph.shape == (1, tfwd.SPH_COLS) and not sph.any()
 
 
 @pytest.mark.parametrize("kind", ["cornell", "perturbed"])
 def test_pack_shadow_matches(kind):
     tsc, jsc = _scenes(kind)
-    quads = tdetect(trt.cornell_box())       # the unperturbed pairing
+    quads = tdetect(trt.cornell_box(device="cpu"))       # the unperturbed pairing
     a = tfwd.pack_shadow(tsc, quads)
     b = np.asarray(jfwd.pack_shadow(jsc, quads))
     assert tuple(a.shape) == b.shape == (26 - len(quads[0]), tfwd.SHD_COLS)
@@ -75,7 +75,7 @@ def test_plain_matches_pallas_interpret(kw):
     jsc = jrt.cornell_box()
     img_j, packed_j = jfwd.render_fused_raw(jsc, cfg_j, interpret=True,
                                             quads=jdetect(jsc))
-    img_t = trt.render_image(trt.cornell_box(), cfg_t, backend="torch")
+    img_t = trt.render_image(trt.cornell_box(device="cpu"), cfg_t, backend="torch")
     assert img_t.shape == (16, 128, 3)
     assert_images_match(img_t.numpy(), np.asarray(img_j),
                         what=f"torch plain vs pallas interpret {kw}")
@@ -92,7 +92,7 @@ def _rgb(packed):
 def test_render_fused_raw_cpu_runs_plain_version():
     """A CPU scene takes the plain version: no launch, packed ==
     pack_argb(image), the same frame as render_fused_plain."""
-    sc = trt.cornell_box()
+    sc = trt.cornell_box(device="cpu")
     cfg = trt.RenderConfig(width=32, height=16, shadow_samples=3, bounces=2)
     before = tfwd.LAUNCHES
     img, packed = tfwd.render_fused_raw(sc, cfg, quads=tdetect(sc))
@@ -109,7 +109,7 @@ def test_row_band_equals_full_frame_rows():
     """The plain version's row band is the same rows of its full frame
     (ray centering and the pixel-id RNG stay global); the wrapper rejects
     a band outside the image."""
-    sc = trt.cornell_box()
+    sc = trt.cornell_box(device="cpu")
     cfg = trt.RenderConfig(width=48, height=32, shadow_samples=4, bounces=3)
     full, full_p = tfwd.render_fused_plain(sc, cfg)
     band, band_p = tfwd.render_fused_plain(sc, cfg, row0=8, rows=12)
@@ -138,7 +138,7 @@ def test_launch_params_and_budget():
 
 
 def test_render_fused_raw_rejects_other_devices():
-    sc = trt.cornell_box().to("meta")
+    sc = trt.cornell_box(device="cpu").to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         tfwd.render_fused_raw(sc, trt.RenderConfig(width=8, height=8))
 

@@ -1,9 +1,11 @@
 """uob_raytracer_tpu_torch — the ray tracer in PyTorch, with CUDA kernels.
 
 A port of ``uob_raytracer_tpu`` (JAX/Pallas) to PyTorch on an NVIDIA H100.
-The forward frame runs as one launch of a hand-written CUDA kernel
-(``csrc/render_fwd.cu``) for a scene on the card, and as the plain torch
-pipeline for a scene on the CPU. This package imports neither jax nor the
+For a scene on the card the forward frame is one launch of a hand-written
+CUDA kernel (``csrc/render_fwd.cu``) and its gradient one launch of the
+path-replay backward kernel (``csrc/render_bwd.cu``); a scene on the CPU
+runs their plain torch versions. Scenes are built on the card unless the
+caller passes ``device="cpu"``. This package imports neither jax nor the
 JAX package; the JAX package is the reference its tests hold it to.
 """
 from .config import RenderConfig, ShadingModel, baseline_configs  # noqa: F401

@@ -33,9 +33,18 @@
 // shared memory and each pixel writes 16 B (12 B of image, 4 B packed), so
 // device memory is not the limit.
 //
-// Left for later PRs: FMA contraction (see below), the residual outputs
-// (pid, lit, bid) for the path-replay backward, the streamed variant for
-// scenes past the shared-memory budget, warp-level early exit and a
+// Residual outputs (the TPU kernel's with_residuals mode): with non-null
+// pid, lit and bid pointers the kernel also writes each ray's decision
+// record for the path-replay backward (render_bwd.cu): the primary hit's
+// object id, the unoccluded shadow-sample count, and the object hit at
+// every bounce step. Ids are 0..T-1 triangle, T+s sphere s, -1 miss or a
+// step the ray never ran; lit is 0 on a ray that shades nothing. The
+// layout is A-major (pid[a][p], bid[b][a][p]), so consecutive threads
+// write consecutive addresses, and every element is written exactly once.
+// With null pointers nothing is recorded and nothing else changes.
+//
+// Left for later PRs: FMA contraction (see below), the streamed variant
+// for scenes past the shared-memory budget, warp-level early exit and a
 // sample-parallel occlusion scan, hoisting the per-row occlusion
 // invariants out of the sample loop, and occupancy tuning.
 //
@@ -63,6 +72,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "vec3.cuh"
+
 namespace {
 
 constexpr float kBig = 3.0e38f;  // "no hit" t
@@ -84,39 +95,6 @@ struct Params {
   float half_w, half_h, focal, light_spread, shadow_bias, bias;
   float ior_glass, ior_air, inv_a, pi4;
 };
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 make(float x, float y, float z) {
-  V3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
-  return r;
-}
-__device__ __forceinline__ V3 load3(const float* p) { return make(p[0], p[1], p[2]); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return make(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return make(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 scale(float s, V3 a) { return make(s * a.x, s * a.y, s * a.z); }
-__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return make(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
-// Cofactor expansion, rows (a, b, c) (kernels.cl:31-35).
-__device__ __forceinline__ float det3(V3 a, V3 b, V3 c) {
-  return a.x * (b.y * c.z - b.z * c.y) - a.y * (b.x * c.z - b.z * c.x) +
-         a.z * (b.x * c.y - b.y * c.x);
-}
-// jnp.minimum / jnp.maximum: NaN in, NaN out.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-}
 
 __device__ __forceinline__ uint32_t xorshift(uint32_t s) {
   s ^= s << 13;
@@ -149,6 +127,7 @@ struct HitInfo {
   float t;
   V3 pos, nrm, rgb;
   float mat;
+  int id;  // 0..T-1 triangle, T+s sphere s, -1 miss
 };
 
 // General nearest hit for a ray (start, d): Cramer's rule per triangle,
@@ -180,6 +159,7 @@ __device__ HitInfo nearest_hit(const Params& P, const float* tri, const float* s
   h.nrm = h.pos;
   h.rgb = h.pos;
   h.mat = 1.0f;
+  h.id = best;
   if (best >= 0) {
     const float* T = tri + best * kTriCols;
     h.pos = add(load3(T), add(scale(u_b, load3(T + 3)), scale(v_b, load3(T + 6))));
@@ -203,6 +183,7 @@ __device__ HitInfo nearest_hit(const Params& P, const float* tri, const float* s
       h.nrm = make(pc.x / pclen, pc.y / pclen, pc.z / pclen);
       h.rgb = load3(S + 4);
       h.mat = S[7];
+      h.id = P.n_tri + i;
     }
   }
   h.t = t_b;
@@ -256,7 +237,9 @@ __device__ bool occluded(const Params& P, const float* tbl, int cols, int ecol, 
 __global__ void __launch_bounds__(kThreads)
     render_fwd_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                       const float* __restrict__ g_cam, const float* __restrict__ g_shd,
-                      float* __restrict__ img, uint32_t* __restrict__ packed, Params P) {
+                      float* __restrict__ img, uint32_t* __restrict__ packed,
+                      int* __restrict__ pid, float* __restrict__ lit_out,
+                      int* __restrict__ bid, Params P) {
   extern __shared__ float smem[];
   float* tri = smem;
   float* prim = tri + P.n_tri * kTriCols;
@@ -291,6 +274,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t n_pix = (size_t)P.rows * P.width;
   if (p >= P.rows * P.width) return;
   const int py = p / P.width;
   const int px = p - py * P.width;
@@ -350,6 +334,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     const bool hit = t_b < kBig;
+    if (pid) pid[a * n_pix + p] = idf;
     V3 pos = make(0.0f, 0.0f, 0.0f), nrm = pos, rgb = pos;
     float mat = 1.0f;
     if (hit) pos = add(cam_pos, scale(t_b, d));
@@ -377,7 +362,8 @@ __global__ void __launch_bounds__(kThreads)
       bool active = hit && mat <= 0.0f;
       V3 dcur = d, cpos = pos, cnrm = nrm;
       float cmat = mat, medium = P.ior_air;
-      for (int bi = 0; bi < P.bounces && active; ++bi) {
+      int bi = 0;
+      for (; bi < P.bounces && active; ++bi) {
         // reflect (kernels.cl:54-65)
         const float dn = dot(dcur, cnrm);
         const V3 refl = sub(dcur, scale(2.0f * dn, cnrm));
@@ -411,6 +397,7 @@ __global__ void __launch_bounds__(kThreads)
           weight = weight * (use_refl ? 1.0f : 1.0f - refl_w);
         }
         const HitInfo h = nearest_hit(P, tri, sph, nstart, ndir);
+        if (bid) bid[((size_t)bi * A + a) * n_pix + p] = h.id;
         const bool hit_n = h.t < kBig;
         if (hit_n && h.mat > 0.0f) {
           term_valid = true;
@@ -427,10 +414,14 @@ __global__ void __launch_bounds__(kThreads)
           medium = nmed;
         }
       }
+      // steps the ray never ran (and the step it died in) read "inactive"
+      if (bid)
+        for (; bi < P.bounces; ++bi) bid[((size_t)bi * A + a) * n_pix + p] = -1;
     }
 
     // --- one soft-shadow pass at the unified shading point ---
     V3 color = make(0.0f, 0.0f, 0.0f);
+    float lit_rec = 0.0f;
     if (prim_diffuse || term_valid) {
       const V3 sp_pos = sel(prim_diffuse, pos, term_pos);
       const V3 sp_nrm = sel(prim_diffuse, nrm, term_nrm);
@@ -464,6 +455,7 @@ __global__ void __launch_bounds__(kThreads)
                      radius_sq))
           lit = lit - 1.0f;
       }
+      lit_rec = lit;
       const float dl_scale = lit * lam_base / (float)S;
       const V3 dl = make(light_rgb.x * dl_scale, light_rgb.y * dl_scale, light_rgb.z * dl_scale);
       // combine (kernels.cl:415-425)
@@ -476,6 +468,7 @@ __global__ void __launch_bounds__(kThreads)
                      rgb.z * (indirect.z + dl.z));
       }
     }
+    if (lit_out) lit_out[a * n_pix + p] = lit_rec;
     acc = add(acc, color);
   }
 
@@ -498,10 +491,14 @@ __global__ void __launch_bounds__(kThreads)
 //       n_tri, n_sph, n_quads, n_shd, cpu_ref, fresnel, quirk_nan_tir}
 // fp = {half_w, half_h, focal, light_spread, shadow_bias, bias,
 //       ior_glass, ior_air, inv_a, pi4}
-// shd may be null when n_shd == 0. Returns cudaGetLastError() of the launch.
+// shd may be null when n_shd == 0. pid [A, rows, W], lit [A, rows, W] and
+// bid [bounces, A, rows, W] are the residual outputs: all null (nothing
+// recorded) or all given (bid may be null when bounces == 0). Returns
+// cudaGetLastError() of the launch.
 extern "C" int render_fwd_launch(const float* tri, const float* sph, const float* cam,
-                                 const float* shd, float* img, uint32_t* packed, const int* ip,
-                                 const float* fp, void* stream) {
+                                 const float* shd, float* img, uint32_t* packed, int* pid,
+                                 float* lit, int* bid, const int* ip, const float* fp,
+                                 void* stream) {
   Params P;
   P.width = ip[0];
   P.height = ip[1];
@@ -539,7 +536,7 @@ extern "C" int render_fwd_launch(const float* tri, const float* sph, const float
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
-  render_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, shd, img,
-                                                                       packed, P);
+  render_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      tri, sph, cam, shd, img, packed, pid, lit, bid, P);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,21 @@
-"""The fused forward render kernel: scene tables and its launch wrapper.
+"""The fused forward render kernel: scene tables and its launch wrappers.
 
 ``render_fused_raw`` renders a frame in ONE launch of the CUDA kernel in
 ``csrc/render_fwd.cu``, the Hopper counterpart of the TPU kernel
 ``uob_raytracer_tpu/kernels/render_fwd.py:_render_kernel``: AA ray
 generation, brute-force nearest hit, the specular bounce loop, one
 soft-shadow pass at the unified shading point, the AA mean and the ARGB
-pack. The scene goes to the kernel as the flat tables ``pack_scene`` and
-``pack_shadow`` build, with the same layouts as the JAX package's.
+pack. ``render_fused_res`` is the same launch with the kernel's three
+residual outputs switched on: the decision record (``ops/replay.py``)
+that the path-replay backward consumes. The scene goes to the kernel as
+the flat tables ``pack_scene`` and ``pack_shadow`` build, with the same
+layouts as the JAX package's.
 
-The kernel's plain torch version, ``render_fused_plain`` (``render_flat``
-and the AA mean), lives here beside it. For a scene on the CPU the wrapper
-runs that plain version; for a CUDA scene it launches the kernel or
-raises, and never falls back. ``LAUNCHES`` counts the launches.
+The kernel's plain torch versions, ``render_fused_plain`` and
+``render_fused_res_plain`` (``render_flat`` and the AA mean), live here
+beside it. For a scene on the CPU the wrappers run those plain versions;
+for a CUDA scene they launch the kernel or raise, and never fall back.
+``LAUNCHES`` counts the launches.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from ..ops.camera import gen_primary_rays
 from ..ops.image import pack_argb
 from ..ops.intersect import prepare_scene
 from ..ops.math3 import cross3, dot3
+from ..ops.replay import Residuals
 from ..ops.shading import shade, shade_cpu_ref
 from ..scene import Scene
 from . import _build
@@ -136,7 +141,7 @@ def launch_params(cfg: RenderConfig, row0: int, rows: int, n_tri: int,
 
 def _declare(lib: ctypes.CDLL):
     fn = lib.render_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int),
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int),
                                            ctypes.POINTER(ctypes.c_float),
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -169,10 +174,12 @@ def _pick_chunk_rows(cfg: RenderConfig, rows: int | None = None,
 
 
 def render_flat(scene: Scene, cfg: RenderConfig, chunk_rows: int | None = None,
-                row0: int = 0, rows: int | None = None):
+                row0: int = 0, rows: int | None = None, record: bool = False):
     """Float radiance per AA ray, shaped [rows, W, A, 3], for the row band
     [row0, row0 + rows) of the cfg-sized image (the whole image by
-    default). Chunks of ``chunk_rows`` rows run one after another."""
+    default). Chunks of ``chunk_rows`` rows run one after another. With
+    ``record`` it returns (radiance, Residuals): every ray's decisions in
+    the kernel's A-major layout."""
     ds = prepare_scene(scene)
     rows = cfg.height - row0 if rows is None else rows
     dirs, gid = gen_primary_rays(cfg, scene.yaw, scene.pitch, row0, rows)
@@ -188,13 +195,24 @@ def render_flat(scene: Scene, cfg: RenderConfig, chunk_rows: int | None = None,
     d_flat = dirs.reshape(-1, rays_per_chunk, 3)
     gid_flat = gid.reshape(-1).repeat_interleave(A).reshape(-1, rays_per_chunk)
     start = scene.camera_pos.expand(rays_per_chunk, 3)
-    colors = []
+    colors, records = [], []
     for d_c, gid_c in zip(d_flat, gid_flat):
         if cfg.cpu_ref:
-            colors.append(shade_cpu_ref(ds, cfg, start, d_c))
+            out = shade_cpu_ref(ds, cfg, start, d_c, record)
         else:
-            colors.append(shade(ds, cfg, start, d_c, gid_c))
-    return torch.stack(colors).reshape(rows, W, A, 3)
+            out = shade(ds, cfg, start, d_c, gid_c, record)
+        if record:
+            out, rec = out
+            records.append(rec)
+        colors.append(out)
+    colors = torch.stack(colors).reshape(rows, W, A, 3)
+    if not record:
+        return colors
+    pid, lit, bid = (torch.cat(parts, dim=-1) for parts in zip(*records))
+    return colors, Residuals(
+        prim_id=pid.reshape(rows, W, A).permute(2, 0, 1).contiguous(),
+        lit_cnt=lit.reshape(rows, W, A).permute(2, 0, 1).contiguous(),
+        bounce_id=bid.reshape(-1, rows, W, A).permute(0, 3, 1, 2).contiguous())
 
 
 def render_fused_plain(scene: Scene, cfg: RenderConfig, row0: int = 0,
@@ -208,9 +226,28 @@ def render_fused_plain(scene: Scene, cfg: RenderConfig, row0: int = 0,
     return img, pack_argb(img)
 
 
+def render_fused_res_plain(scene: Scene, cfg: RenderConfig, row0: int = 0,
+                           rows: int | None = None,
+                           chunk_rows: int | None = None):
+    """The plain torch version of ``render_fused_res``: (image, packed,
+    Residuals). The image is ``render_fused_plain``'s, bit for bit."""
+    colors, res = render_flat(scene, cfg, chunk_rows, row0, rows, record=True)
+    img = colors.sum(dim=2) / float(colors.shape[2])
+    return img, pack_argb(img), res
+
+
 # --------------------------------------------------------------------------
-# The wrapper
+# The wrappers
 # --------------------------------------------------------------------------
+
+def _band(cfg: RenderConfig, row0, rows) -> tuple[int, int]:
+    row0 = 0 if row0 is None else int(row0)
+    rows = cfg.height - row0 if rows is None else int(rows)
+    if row0 < 0 or rows < 0 or row0 + rows > cfg.height:
+        raise ValueError(f"row band [{row0}, {row0 + rows}) is outside the "
+                         f"{cfg.height}-row image")
+    return row0, rows
+
 
 def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
                      rows: int | None = None, quads=None):
@@ -222,19 +259,37 @@ def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
     pairing from ``ops.quads.detect_shadow_quads`` — quad-merged occlusion
     scan (the plain version scans triangles and ignores it). cfg.cpu_ref
     runs the same kernel in CPU-ref semantics (skeleton.cpp:184-279).
-    A CPU scene runs ``render_fused_plain``."""
+    A CPU scene runs ``render_fused_plain``. Not differentiable by itself:
+    ``render.render_image`` wires the path-replay backward."""
+    row0, rows = _band(cfg, row0, rows)
+    if scene.device.type == "cpu":
+        with torch.no_grad():
+            return render_fused_plain(scene, cfg, row0, rows)
+    return _launch(scene, cfg, row0, rows, quads, record=False)[:2]
+
+
+def render_fused_res(scene: Scene, cfg: RenderConfig, row0=None,
+                     rows: int | None = None, quads=None):
+    """Forward render that also returns the decision residuals consumed by
+    the path-replay backward: (image, packed, Residuals). The same single
+    kernel launch as ``render_fused_raw`` with its residual outputs on. A
+    CPU scene runs ``render_fused_res_plain``."""
+    row0, rows = _band(cfg, row0, rows)
+    if scene.device.type == "cpu":
+        with torch.no_grad():
+            return render_fused_res_plain(scene, cfg, row0, rows)
+    return _launch(scene, cfg, row0, rows, quads, record=True)
+
+
+def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
+            record: bool):
+    """One launch of render_fwd_kernel on the scene's CUDA device:
+    (image, packed, Residuals or None)."""
     global LAUNCHES
-    row0 = 0 if row0 is None else int(row0)
-    rows = cfg.height - row0 if rows is None else int(rows)
-    if row0 < 0 or rows < 0 or row0 + rows > cfg.height:
-        raise ValueError(f"row band [{row0}, {row0 + rows}) is outside the "
-                         f"{cfg.height}-row image")
     dev = scene.device
-    if dev.type == "cpu":
-        return render_fused_plain(scene, cfg, row0, rows)
     if dev.type != "cuda":
-        raise ValueError(f"render_fused_raw: scene on {dev}; the kernel "
-                         f"needs a CUDA device (its plain version the CPU)")
+        raise ValueError(f"render_fwd: scene on {dev}; the kernel needs a "
+                         f"CUDA device (its plain version the CPU)")
 
     n_tri = scene.num_triangles
     if n_tri > MAX_TRIANGLES:
@@ -243,7 +298,8 @@ def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
             f"streamed kernel, which is not ported yet")
     # CPU-ref ignores spheres entirely (the vestigial path predates them)
     n_sph = 0 if cfg.cpu_ref else scene.num_spheres
-    # the kernel has no backward yet: pack without recording a graph
+    # the tables feed the kernel's raw pointers; the backward pulls its
+    # cotangents through pack_scene again (render.py), so no graph here
     with torch.no_grad():
         tri, sph, cam = pack_scene(scene)
         shd = None if quads is None else pack_shadow(scene, quads)
@@ -261,18 +317,31 @@ def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
     if shd is not None:
         _check("shd", shd, (n_shd, SHD_COLS))
 
-    img = torch.empty((rows, cfg.width, 3), dtype=torch.float32, device=dev)
-    packed = torch.empty((rows, cfg.width), dtype=torch.uint32, device=dev)
+    W, A = cfg.width, cfg.aa_rays
+    img = torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
+    packed = torch.empty((rows, W), dtype=torch.uint32, device=dev)
+    res = None
+    if record:
+        # every element is written by the kernel: steps a ray never ran
+        # get -1, a ray that shades nothing gets lit 0
+        res = Residuals(
+            prim_id=torch.empty((A, rows, W), dtype=torch.int32, device=dev),
+            lit_cnt=torch.empty((A, rows, W), dtype=torch.float32, device=dev),
+            bounce_id=torch.empty((cfg.bounces, A, rows, W),
+                                  dtype=torch.int32, device=dev))
     ints, floats = launch_params(cfg, row0, rows, n_tri, n_sph, n_quads,
                                  n_shd)
     launch = _declare(_build.load())
     with torch.cuda.device(dev):
         err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
                      0 if shd is None else shd.data_ptr(), img.data_ptr(),
-                     packed.data_ptr(), ints, floats,
+                     packed.data_ptr(),
+                     *((0, 0, 0) if res is None else
+                       (t.data_ptr() for t in res)),
+                     ints, floats,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES += 1
-    return img, packed
+    return img, packed, res

@@ -41,7 +41,7 @@ def gen_primary_rays(cfg: RenderConfig, yaw, pitch, row0: int = 0,
     """
     W, H = cfg.width, cfg.height
     rows = H - row0 if rows is None else rows
-    dev, f32 = yaw.device, torch.float32
+    dev, f32 = yaw.device, yaw.dtype   # float32 scenes: float32 rays
     xs = torch.arange(W, dtype=f32, device=dev)[None, :]
     ys = torch.arange(row0, row0 + rows, dtype=f32, device=dev)[:, None]
     focal = float(np.float32(cfg.effective_focal))

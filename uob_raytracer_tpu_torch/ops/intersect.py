@@ -59,6 +59,7 @@ class Hit(NamedTuple):
     mat: torch.Tensor      # [N]
     t: torch.Tensor        # [N]
     obj_id: torch.Tensor   # [N] int64: triangle index, -2 sphere, -1 miss
+    sph_id: torch.Tensor   # [N] int64: index of the sphere hit, else -1
 
 
 def prepare_scene(scene: Scene) -> DeviceScene:
@@ -99,7 +100,12 @@ def _sphere_roots(ds: DeviceScene, start, d):
     c = dot3(L, L) - ds.sph_r2[None]
     disc = b * b - 4.0 * a * c
     no_sol = disc < 0
-    sq = torch.sqrt(torch.where(no_sol, 1.0, disc))
+    # disc == 0 (an exact tangent) short-circuits the sqrt as well: its
+    # value is 0 either way, and the inf derivative of sqrt at 0 would
+    # poison every gradient of the quadratic's inputs.
+    sq_zero = disc == 0
+    sq = torch.sqrt(torch.where(no_sol | sq_zero, 1.0, disc))
+    sq = torch.where(sq_zero, 0.0, sq)
     q = torch.where(b > 0, -0.5 * (b + sq), -0.5 * (b - sq))
     q_zero = q == 0
     x0 = q / torch.where(a == 0, 1.0, a)  # a = |d|^2 > 0 in practice
@@ -135,6 +141,7 @@ def intersect(ds: DeviceScene, start, d) -> Hit:
     """Nearest hit for rays (start [N,3], d [N,3])."""
     tri_t, idx, pos, normal, rgb, mat = _best_triangle(ds, start, d)
     t_best, obj = tri_t, idx
+    sph_id = torch.full_like(idx, -1)
 
     if ds.num_spheres:
         xmin, xmax, no_sol = _sphere_roots(ds, start, d)
@@ -155,11 +162,20 @@ def intersect(ds: DeviceScene, start, d) -> Hit:
         mat = torch.where(sphere_wins, ds.sph_mat[sph_idx], mat)
         t_best = torch.where(sphere_wins, sph_t, tri_t)
         obj = torch.where(sphere_wins, -2, idx)
+        sph_id = torch.where(sphere_wins, sph_idx, -1)
 
     hit_any = torch.isfinite(t_best)
     obj = torch.where(hit_any, obj, -1)
     return Hit(hit=hit_any, pos=pos, normal=normal, rgb=rgb, mat=mat,
-               t=t_best, obj_id=obj)
+               t=t_best, obj_id=obj, sph_id=sph_id)
+
+
+def replay_id(ds: DeviceScene, hit: Hit) -> torch.Tensor:
+    """The hit's object id in the decision record's encoding
+    (``ops/replay.py``): 0..T-1 triangle, T+s sphere s, -1 miss; int32."""
+    n_tri = ds.v0.shape[0]
+    return torch.where(hit.obj_id == -2, n_tri + hit.sph_id,
+                       hit.obj_id).to(torch.int32)
 
 
 def in_shadow(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from .intersect import DeviceScene, Hit, _tri_tuv, in_shadow, intersect
+from .intersect import (DeviceScene, Hit, _tri_tuv, in_shadow, intersect,
+                        replay_id)
 from .math3 import dot3, normalize3
 from .rng import crush, shadow_seed, xorshift
 
@@ -31,7 +32,9 @@ def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid):
     Reference quirks kept verbatim: the per-sample jitter perturbs only the
     occlusion ray; the Lambert term uses the unperturbed *unnormalized*
     shadow direction in both the cosine and the 1/(4 pi r^2) falloff; the
-    RNG stream restarts from the pixel-id seed on every call."""
+    RNG stream restarts from the pixel-id seed on every call.
+
+    Returns (light [N,3], lit count [N] float32: the unoccluded samples)."""
     sdir = ds.light_pos[None] - pos
     start = pos + _f32(cfg.bias) * sdir
     radius_sq = dot3(sdir, sdir)
@@ -42,12 +45,14 @@ def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid):
 
     state = shadow_seed(gid)
     total = torch.zeros_like(pos)
+    count = torch.zeros_like(radius_sq)
     for _ in range(cfg.shadow_samples):
         state = xorshift(state)
         jitter = crush(state, cfg.light_spread)
-        lit = ~in_shadow(ds, start, sdir + jitter, radius_sq)
-        total = total + lit[:, None].to(torch.float32) * lamb
-    return total / float(cfg.shadow_samples)
+        lit = (~in_shadow(ds, start, sdir + jitter, radius_sq)).to(torch.float32)
+        total = total + lit[:, None] * lamb
+        count = count + lit
+    return total / float(cfg.shadow_samples), count
 
 
 def _reflect_dir(d, n):
@@ -91,7 +96,9 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d):
     exhausted budget / quirk-TIR death leave term_valid False (black, as in
     the reference). With ``cfg.quirk_nan_tir`` a total-internal-reflection
     event kills the ray; otherwise TIR reflects. With ``cfg.fresnel``
-    refraction is attenuated by Schlick transmittance (extension)."""
+    refraction is attenuated by Schlick transmittance (extension).
+    ``bid`` lists, per step, the object each still-alive ray hit
+    (``replay_id`` encoding; -1 for a miss or a ray not alive)."""
     n_rays = d.shape[0]
     dev = d.device
     air = _f32(cfg.ior_air)
@@ -107,6 +114,7 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d):
         normal=primary.normal,
         mat=primary.mat,
         medium=torch.full((n_rays,), air, device=dev),
+        bid=[],
     )
     for _ in range(cfg.bounces):
         refl = _reflect_dir(s["d"], s["normal"])
@@ -147,17 +155,24 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d):
             normal=torch.where(keep, hit.normal, s["normal"]),
             mat=torch.where(cont, hit.mat, s["mat"]),
             medium=torch.where(cont, new_medium, s["medium"]),
+            bid=s["bid"] + [torch.where(alive, replay_id(ds, hit), -1)],
         )
     return s
 
 
-def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid):
+def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid,
+          record: bool = False):
     """Full per-ray radiance (``kernels.cl:411-425``): nearest hit, bounce
     loop for specular rays, then ONE soft-shadow evaluation at the unified
     shading point (the primary hit for diffuse rays, the bounce-terminal
     hit for specular rays — both use the same pixel-seeded RNG stream, so
     the result is identical to shading inside the loop as the reference
-    does)."""
+    does).
+
+    With ``record`` it returns (color, (pid [N] int32, lit [N] float32,
+    bid [bounces, N] int32)): the ray's decisions, as the fused kernel
+    records them for the path-replay backward. ``lit`` is 0 on a ray that
+    shades nothing."""
     primary = intersect(ds, start, d)
     prim_diffuse = primary.hit & (primary.mat > 0)
 
@@ -170,24 +185,32 @@ def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid):
         term = None
         sp_pos, sp_normal = primary.pos, primary.normal
 
-    dl = direct_light(ds, cfg, sp_pos, sp_normal, gid)
+    dl, lit = direct_light(ds, cfg, sp_pos, sp_normal, gid)
     color = torch.where(prim_diffuse[:, None],
                         primary.rgb * (ds.indirect[None] + dl), 0.0)
+    shades = prim_diffuse
     if term is not None:
         sec = (0.9 * (ds.indirect[None] + dl) * term["term_rgb"]
                * term["weight"][:, None])
         color = torch.where(term["term_valid"][:, None], sec, color)
-    return color
+        shades = shades | term["term_valid"]
+    if not record:
+        return color
+    bid = (torch.stack(term["bid"]) if term is not None else torch.zeros(
+        (0, d.shape[0]), dtype=torch.int32, device=d.device))
+    return color, (replay_id(ds, primary), torch.where(shades, lit, 0.0), bid)
 
 
 # ---------------------------------------------------------------------------
 # CPU-reference semantics (the vestigial scalar renderer)
 # ---------------------------------------------------------------------------
 
-def shade_cpu_ref(ds: DeviceScene, cfg: RenderConfig, start, d):
+def shade_cpu_ref(ds: DeviceScene, cfg: RenderConfig, start, d,
+                  record: bool = False):
     """``skeleton.cpp:184-279`` semantics: triangles only, unnormalized rays,
     distances measured as |t*d|, one hard shadow ray with relative bias 1e-3,
-    no material logic (every triangle occludes)."""
+    no material logic (every triangle occludes). With ``record`` it also
+    returns the decision record, as ``shade`` does."""
     t, u, v, degenerate = _tri_tuv(ds, start, d)
     valid = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)) & ~degenerate
     t_m = torch.where(valid, t, float("inf"))
@@ -216,5 +239,10 @@ def shade_cpu_ref(ds: DeviceScene, cfg: RenderConfig, start, d):
     lamb = (ds.light_color[None] * torch.clamp(dot3(r, normal), min=0.0)[:, None]
             / (_PI4 * rad_safe * rad_safe)[:, None])
     dl = torch.where(shadowed[:, None], 0.0, lamb)
-    color = rgb * (dl + ds.indirect[None])
-    return torch.where(hit[:, None], color, 0.0)
+    color = torch.where(hit[:, None], rgb * (dl + ds.indirect[None]), 0.0)
+    if not record:
+        return color
+    pid = torch.where(hit, idx, -1).to(torch.int32)
+    lit = (hit & ~shadowed).to(torch.float32)
+    return color, (pid, lit, torch.zeros((0, d.shape[0]), dtype=torch.int32,
+                                         device=d.device))

@@ -180,9 +180,10 @@ def cornell_box(
     spheres: bool = True,
     masked_sphere: bool = False,
     shading: ShadingModel = ShadingModel.DEVICE,
-    device="cpu",
+    device=None,
 ) -> Scene:
-    """Build the golden Cornell Box scene on ``device``.
+    """Build the golden Cornell Box scene on ``device`` (default: the
+    current CUDA device; pass ``device="cpu"`` for the CPU).
 
     shading selects between the live device constants (light 16, indirect 0.5,
     ``kernels.cl:3-4``) and the vestigial host constants (light 14, indirect
@@ -292,8 +293,12 @@ def animate_light(light_x: float, lor: bool) -> tuple[float, bool]:
 # with the same keys as ``uob_raytracer_tpu.scene.save_scene``.
 # --------------------------------------------------------------------------
 
-def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
-    """Scene from a dict of the 15 leaf arrays, keyed by field name."""
+def scene_from_numpy(leaves: dict, device=None) -> Scene:
+    """Scene from a dict of the 15 leaf arrays, keyed by field name, on
+    ``device``. With no device the scene goes to the current CUDA device,
+    and a machine without one raises torch's own error; the CPU is used
+    when the caller asks for it by name."""
+    device = torch.device("cuda" if device is None else device)
     return Scene(**{
         f.name: torch.from_numpy(
             np.array(leaves[f.name], dtype=np.float32)).to(device)
@@ -311,7 +316,8 @@ def save_scene(path: str, scene: Scene) -> None:
     np.savez_compressed(path, **scene_to_numpy(scene))
 
 
-def load_scene(path: str, device="cpu") -> Scene:
-    """Load a scene checkpoint written by either package's save_scene."""
+def load_scene(path: str, device=None) -> Scene:
+    """Load a scene checkpoint written by either package's save_scene, onto
+    ``device`` (default: the current CUDA device)."""
     with np.load(path) as z:
         return scene_from_numpy({k: z[k] for k in z.files}, device)

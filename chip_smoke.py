@@ -5,13 +5,13 @@
 Builds the CUDA kernels from ``uob_raytracer_tpu_torch/csrc`` (one nvcc call,
 one library) and then, every phase raising on failure and none caught:
 
-1. holds the fused forward kernel against its plain torch version on the
-   card (twelve 128x16 mode cases, the five baseline configs, the 64x64
+1. holds the whole-table forward kernel against its plain torch version on
+   the card (twelve 128x16 mode cases, the five baseline configs, the 64x64
    goldens), and its residual outputs against the plain decision record,
    with the shadow quads and, as the trainer launches it, without them;
-2. holds the path-replay backward kernel against its plain version (torch
-   autograd through the replay) on the 128x16 mode cases;
-3. drives the port's two main paths at the full_1024 configuration:
+2. holds the whole-table path-replay backward kernel against its plain
+   version (torch autograd through the replay) on the 128x16 mode cases;
+3. drives the port's main paths at the full_1024 configuration:
    ``render(cornell_box(), RenderConfig())`` (one forward launch, a row band
    checked against it), and five ``train_step``s on light_pos and tri_rgb
    towards a target rendered with the light moved (one forward and one
@@ -19,19 +19,34 @@ one library) and then, every phase raising on failure and none caught:
 4. holds the backward kernel against its plain version at full width (the
    plain version run in eight row bands, its gradients summed), and checks
    that two runs give bit-equal gradients;
-5. times, per baseline config, ``render()``, the forward wrapper with and
-   without the record, the backward wrapper, ``train_step`` and the plain
-   versions (CUDA events; each kernel's device time from torch.profiler).
+5. the large-scene path (the Cornell box plus random small triangles, the
+   JAX package's ``bench.py:dense_scene``): holds the streamed forward
+   kernel against its plain version at 600 triangles (128x16 mode cases,
+   with and without quads, a row band) and at 8,192 (128x128, 2x2 AA, 3
+   samples, 2 bounces), and bit for bit against the whole-table kernel on
+   the scenes both run; the streamed backward kernel with its segmented
+   sum against its plain version at 600 and 8,192 triangles, against the
+   whole-table kernel at 600, two runs bit-equal; then drives ``render()``
+   on the 8,192-triangle scene at 128x128 and at 512x512, and five
+   ``train_step``s on it (one streamed forward, one streamed backward and
+   one segmented sum per step, a falling loss);
+6. measures the forward of both kernels on dense scenes of 26 to 8,192
+   triangles, each kernel wherever it fits (the cut-over curve);
+7. times, per baseline config and on the large scene, ``render()``, the
+   forward wrapper with and without the record, the backward wrapper,
+   ``train_step`` and the plain versions (CUDA events; each kernel's device
+   time from torch.profiler).
 
 The line before the last lists each kernel with its launches on its main
-path, its worst deviation from the plain version at full_1024, its times
+path, its worst deviation from the plain version at full width, its times
 and its bound: the least time the card could take for the same work, the
 larger of bytes / 3.35 TB/s (inputs read once, outputs written once) and
 float32 operations / 67 TFLOP/s (NVIDIA's H100 SXM data sheet), with the
 operations counted analytically from this run's decision record (see
-``fwd_work`` and ``bwd_work``). No single PyTorch call computes either
-kernel's function, so ``library_ms`` is null. The last line of standard
-output is a JSON object with the device.
+``fwd_work`` and ``bwd_work``). No single PyTorch call computes a render
+kernel's function, so their ``library_ms`` is null; the segmented sum's is
+``index_add_``. The last line of standard output is a JSON object with the
+device.
 
 Imports neither jax nor the JAX package. Runs on one CUDA card: the first
 of those CUDA_VISIBLE_DEVICES lists, or device 0. Exits non-zero without
@@ -143,6 +158,64 @@ def grad_errors(ref: Scene, got: Scene) -> tuple[float, float, str]:
     return rel, ab, leaf
 
 
+def dense_scene(n_tri: int, seed: int = 1):
+    """The large-scene workload of the JAX package (``bench.py:dense_scene``,
+    the same numpy recipe from the same seed): the Cornell box plus random
+    small diffuse triangles inside it, ``n_tri`` triangles in all."""
+    base = rt.cornell_box()
+    rng = np.random.RandomState(seed)
+    extra = n_tri - base.num_triangles
+    if extra <= 0:
+        return base
+    c = (rng.uniform(-0.9, 0.9, (extra, 3)).astype(np.float32)
+         * np.float32([1, 1, 0.3]))
+    c[:, 2] -= 0.2
+    verts = np.stack(
+        [c, c + rng.uniform(0.01, 0.05, (extra, 3)).astype(np.float32),
+         c + rng.uniform(0.01, 0.05, (extra, 3)).astype(np.float32)], axis=1)
+    return rt.add_triangles(base, verts, np.full((extra, 3), 0.6, np.float32),
+                            np.ones((extra,), np.float32))
+
+
+def same_frame(a, b) -> bool:
+    """Two (image, packed, Residuals) results equal bit for bit."""
+    return (torch.equal(a[0], b[0])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def check_streamed_forward(what, scene, cfg, quads, row0=None, rows=None,
+                           against_whole=False):
+    """The streamed forward kernel against the plain version (image budget,
+    exact pack, record within 0.5%), and, where asked, bit for bit against
+    the whole-table kernel. Returns (record, worst pixel deviation)."""
+    out = render_fwd.render_fused_res(scene, cfg, row0, rows, quads,
+                                      _kernel="streamed")
+    ref, _, ref_res = render_fwd.render_fused_res_plain(scene, cfg,
+                                                        row0 or 0, rows)
+    torch.cuda.synchronize()
+    worst, frac = images_match(out[0], ref, what)
+    packed_equal(out[1], out[0], what)
+    pid, bid, lit = record_matches(out[2], ref_res, what)
+    raw = render_fwd.render_fused_raw(scene, cfg, row0, rows, quads,
+                                      _kernel="streamed")
+    if not torch.equal(raw[0], out[0]):
+        raise AssertionError(f"{what}: recording changed the streamed frame")
+    tail = ""
+    if against_whole:
+        whole = render_fwd.render_fused_res(scene, cfg, row0, rows, quads,
+                                            _kernel="whole")
+        torch.cuda.synchronize()
+        if not same_frame(out, whole):
+            raise AssertionError(f"{what}: the streamed and the whole-table "
+                                 f"kernel differ")
+        tail = "; equal to the whole-table kernel bit for bit"
+    print(f"streamed forward {what}: worst {worst:.3g}, beyond {TIGHT}: "
+          f"{frac:.3%}; record vs plain differs on pid {pid:.3%}, bid "
+          f"{bid:.3%}, lit {lit:.3%}{tail}", flush=True)
+    return out[2], worst
+
+
 def scene_for(cfg: RenderConfig):
     """The scene the CLI renders for a config: cpu_ref gets the sphere-free
     box with the HOST constants."""
@@ -174,10 +247,13 @@ def plain_bwd_banded(scene, cfg, res: Residuals, g, bands: int) -> Scene:
     return total
 
 
-def check_backward(scene, cfg, res, seed: int, what: str, bands: int = 1):
-    """K2 against its plain version on one record: float32 noise with the
-    glass-interior pixels' cotangent zeroed, the conditioning budget with
-    all of it. Returns (worst relative, worst absolute) of the full run."""
+def check_backward(scene, cfg, res, seed: int, what: str, bands: int = 1,
+                   kernel=None):
+    """A backward kernel (the one the scene routes to, or the one pinned by
+    ``kernel``) against its plain version on one record: float32 noise with
+    the glass-interior pixels' cotangent zeroed, the conditioning budget
+    with all of it. Returns (worst relative, worst absolute) of the full
+    run."""
     g = seeded_cotangent((cfg.height, cfg.width, 3), seed)
     runs = [(g, GRAD_TOL_GLASS if cfg.bounces >= 2 else GRAD_TOL)]
     if cfg.bounces >= 2:
@@ -186,7 +262,8 @@ def check_backward(scene, cfg, res, seed: int, what: str, bands: int = 1):
     out = None
     for g_run, tol in runs:
         ref = plain_bwd_banded(scene, cfg, res, g_run, bands)
-        got = render_bwd.render_replay_bwd(scene, cfg, res, g_run)
+        got = render_bwd.render_replay_bwd(scene, cfg, res, g_run,
+                                           _kernel=kernel)
         torch.cuda.synchronize()
         rel, ab, leaf = grad_errors(ref, got)
         if rel > tol:
@@ -271,32 +348,65 @@ def fwd_work(cfg, scene, quads, res: Residuals, record: bool):
            + shading * 60 + (lit + occluded) * 30
            + lit * (55 * n_rows + 30 * n_sph) + occluded * 55)
     pix = cfg.width * cfg.height
-    nbytes = 16 * pix + (rays * (8 + 4 * cfg.bounces) if record else 0)
+    nbytes = (16 * pix + (rays * (8 + 4 * cfg.bounces) if record else 0)
+              + 4 * (19 * n_tri + (13 * n_rows if quads is not None else 0)))
     return nbytes, ops
 
 
-def bwd_work(cfg, scene, res: Residuals):
+def bwd_work(cfg, scene, res: Residuals, streamed: bool = False):
     """(bytes, operations) of one backward pass: the primary id, the lit
     count and the cotangent read once, the per-block partial sums written
-    once, and of the per-step ids only those the replay reads: one per
-    executed step, and one more per chain for the entry that ends it; per
-    ray the primary hit's replay and adjoint and the shading adjoint, per
-    executed bounce step its replay, the step's adjoint and the hit's."""
-    n_obj = scene.num_triangles + (0 if cfg.cpu_ref else scene.num_spheres)
+    once (the whole-table kernel's hold every object, the streamed kernel's
+    the spheres and the camera), and of the per-step ids only those the
+    replay reads: one per executed step, and one more per chain for the
+    entry that ends it; the streamed kernel also reads a 76 B row and
+    writes a 64 B cotangent row per site that hit a triangle; per ray the
+    primary hit's replay and adjoint and the shading adjoint, per executed
+    bounce step its replay, the step's adjoint and the hit's."""
+    n_tri = scene.num_triangles
+    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
     rays = res.prim_id.numel()
     steps = int((res.bounce_id >= 0).sum())
     chains = int((res.bounce_id[0] >= 0).sum()) if cfg.bounces else 0
     pix = cfg.width * cfg.height
     blocks = -(-pix // render_bwd.THREADS)
-    nbytes = (rays * 8 + 4 * (steps + chains) + 12 * pix
-              + 4 * blocks * (n_obj * render_bwd.GRAD_COLS + 21))
+    nbytes = rays * 8 + 4 * (steps + chains) + 12 * pix
+    if streamed:
+        ids = render_bwd.site_ids(res)
+        live = int(((ids >= 0) & (ids < n_tri)).sum())
+        nbytes += (76 + 64) * live + 4 * blocks * (n_sph * 16 + 21)
+    else:
+        nbytes += 4 * blocks * ((n_tri + n_sph) * render_bwd.GRAD_COLS + 21)
     ops = rays * 450 + steps * 650
     return nbytes, ops
+
+
+def segment_sum_work(n_tri: int, ids):
+    """(bytes, operations) of the segmented sum after one streamed backward:
+    per site that hit a triangle its 8 B position and its 64 B row read and
+    16 additions; the bounds read and the sums written once per triangle."""
+    live = int(((ids >= 0) & (ids < n_tri)).sum())
+    return (8 + 64) * live + (8 + 64) * n_tri, 16 * live
 
 
 def bound(nbytes, ops) -> tuple[float, str]:
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    render_fwd.LAUNCHES = render_fwd.STREAMED_LAUNCHES = 0
+    render_bwd.LAUNCHES = render_bwd.STREAMED_LAUNCHES = 0
+    render_bwd.SEGMENT_SUM_LAUNCHES = 0
+
+
+def counts() -> tuple[int, int, int, int, int]:
+    """Launches since the last reset: whole-table forward, streamed forward,
+    whole-table backward, streamed backward, segmented sum."""
+    return (render_fwd.LAUNCHES, render_fwd.STREAMED_LAUNCHES,
+            render_bwd.LAUNCHES, render_bwd.STREAMED_LAUNCHES,
+            render_bwd.SEGMENT_SUM_LAUNCHES)
 
 
 def main() -> None:
@@ -420,13 +530,14 @@ def main() -> None:
     if scene.device.type != "cuda":
         raise AssertionError(f"cornell_box() built the scene on {scene.device}")
     cfg = RenderConfig()
-    render_fwd.LAUNCHES = render_bwd.LAUNCHES = 0
+    reset_counts()
     out = rt.render(scene, cfg)
     torch.cuda.synchronize()
     launches = render_fwd.LAUNCHES
-    if launches != 1 or render_bwd.LAUNCHES != 0:
-        raise AssertionError(f"render() launched the forward kernel {launches} "
-                             f"times and the backward {render_bwd.LAUNCHES}")
+    if counts() != (1, 0, 0, 0, 0):
+        raise AssertionError(f"render(): launch counts {counts()} (whole fwd, "
+                             f"streamed fwd, whole bwd, streamed bwd, "
+                             f"segmented sum)")
     if tuple(out.image.shape) != (1024, 1024, 3):
         raise AssertionError(f"main path image shape {tuple(out.image.shape)}")
     if not torch.isfinite(out.image).all():
@@ -465,17 +576,16 @@ def main() -> None:
         scene, light_pos=torch.tensor([0.25, -0.5, -0.7], device="cuda"))
     with torch.no_grad():
         target = rt.render_image(moved, cfg)
-    render_fwd.LAUNCHES = render_bwd.LAUNCHES = 0
+    reset_counts()
     live, losses = scene, []
     for step in range(5):
         step_out = train_step(live, target, cfg, lr=2.0,
                               trainable=("light_pos", "tri_rgb"))
         live = step_out.scene
         losses.append(step_out.loss.item())
-        if (render_fwd.LAUNCHES, render_bwd.LAUNCHES) != (step + 1, step + 1):
-            raise AssertionError(
-                f"train_step {step}: {render_fwd.LAUNCHES} forward and "
-                f"{render_bwd.LAUNCHES} backward launches so far")
+        if counts() != (step + 1, 0, step + 1, 0, 0):
+            raise AssertionError(f"train_step {step}: launch counts "
+                                 f"{counts()} so far")
         for k in ("light_pos", "tri_rgb"):
             if not torch.isfinite(getattr(live, k)).all():
                 raise AssertionError(f"train_step {step}: {k} is not finite")
@@ -512,7 +622,208 @@ def main() -> None:
     print(f"backward full_1024: two runs bit-equal on every leaf; replayed "
           f"radiance within {worst:.3g} of the forward frame", flush=True)
 
-    # --- 7. timing: CUDA events around one call — render() (quads detected
+    # --- 7. the large-scene path: the streamed kernels ---
+    # 7a. the streamed forward equals the whole-table forward bit for bit on
+    # the Cornell cases, with and without quads (and holds to the plain one)
+    for name, sc, quads, cfg in cases:
+        for q in (None, quads):
+            res_c, _ = check_streamed_forward(
+                f"128x16 cornell {name} quads={q is not None}", sc, cfg, q,
+                against_whole=True)
+        check_backward(sc, cfg, res_c, seed=20,
+                       what=f"128x16 cornell {name}, streamed",
+                       kernel="streamed")
+
+    # 7b. 600 triangles, 128x16: the mode cases, quads and no quads, a band
+    d600 = dense_scene(600)
+    q600 = detect_shadow_quads(d600)
+    if q600 is None or not q600[0]:
+        raise AssertionError("the dense scene's Cornell walls did not pair")
+    mid = dataclasses.replace(small, aa_x=2, aa_y=2, shadow_samples=3,
+                              bounces=2)
+    cases600 = [
+        ("s3 b2", mid),
+        ("default", small),
+        ("bounces=0", dataclasses.replace(mid, bounces=0)),
+        ("quirk_nan_tir", dataclasses.replace(mid, quirk_nan_tir=True)),
+        ("fresnel,bounces=4", dataclasses.replace(mid, fresnel=True, bounces=4)),
+        ("cpu_ref", dataclasses.replace(mid, cpu_ref=True)),
+    ]
+    for i, (name, cfg) in enumerate(cases600):
+        for q in (None, q600):
+            res6, _ = check_streamed_forward(
+                f"128x16 600 triangles {name} quads={q is not None}", d600,
+                cfg, q, against_whole=True)
+        check_backward(d600, cfg, res6, seed=30 + i,
+                       what=f"128x16 600 triangles {name}, streamed",
+                       kernel="streamed")
+    check_streamed_forward("128x16 600 triangles rows [5, 12)", d600, mid,
+                           q600, row0=5, rows=7, against_whole=True)
+
+    # the streamed backward against the whole-table backward on the same
+    # record: the same per-ray cotangents, summed in another order
+    res6 = render_fwd.render_fused_res(d600, mid, _kernel="streamed")[2]
+    g6 = seeded_cotangent((mid.height, mid.width, 3), 41)
+    by_stream = render_bwd.render_replay_bwd(d600, mid, res6, g6,
+                                             _kernel="streamed")
+    by_whole = render_bwd.render_replay_bwd(d600, mid, res6, g6,
+                                            _kernel="whole")
+    torch.cuda.synchronize()
+    rel, _, leaf = grad_errors(by_whole, by_stream)
+    equal_leaves = [k for k in LEAVES if torch.equal(getattr(by_whole, k),
+                                                     getattr(by_stream, k))]
+    if rel > 1e-5:
+        raise AssertionError(f"streamed vs whole-table backward: {leaf} off "
+                             f"by {rel:.3g} relative (budget 1e-5)")
+    print(f"streamed vs whole-table backward at 600 triangles: worst {leaf} "
+          f"{rel:.3g} relative (budget 1e-5); bit-equal leaves: "
+          f"{', '.join(equal_leaves)}", flush=True)
+
+    # 7c. 8,192 triangles at the JAX package's large-scene size
+    big = dense_scene(8192)
+    q_big = detect_shadow_quads(big)
+    cfg_big = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
+                           shadow_samples=3, bounces=2)
+    if not render_fwd.use_streamed(big.num_triangles, big.num_spheres):
+        raise AssertionError("an 8,192-triangle scene must route to the "
+                             "streamed kernels")
+    res_big, worst_big = check_streamed_forward(
+        "128x128 8192 triangles", big, cfg_big, q_big)
+    res_big_t, _ = check_streamed_forward(
+        "128x128 8192 triangles without quads", big, cfg_big, None)
+    k3b_rel, k3b_abs = check_backward(big, cfg_big, res_big_t, seed=51,
+                                      what="128x128 8192 triangles, streamed")
+    g_big = seeded_cotangent((128, 128, 3), 51)
+    one = render_bwd.render_replay_bwd(big, cfg_big, res_big_t, g_big)
+    two = render_bwd.render_replay_bwd(big, cfg_big, res_big_t, g_big)
+    torch.cuda.synchronize()
+    for k in LEAVES:
+        if not torch.equal(getattr(one, k), getattr(two, k)):
+            raise AssertionError(f"two streamed backward runs differ in {k}")
+    print("streamed backward 8192 triangles: two runs bit-equal on every "
+          "leaf", flush=True)
+
+    # the segmented sum against index_add_ (its plain version) on that
+    # record's sites, two runs bit-equal
+    ids_big = render_bwd.site_ids(res_big_t)
+    rows_big = seeded_cotangent((ids_big.numel(), 16), 52)
+    seg_one = render_bwd.segment_sum(ids_big, rows_big, big.num_triangles)
+    seg_two = render_bwd.segment_sum(ids_big, rows_big, big.num_triangles)
+    seg_ref = render_bwd.segment_sum_plain(ids_big, rows_big,
+                                           big.num_triangles)
+    torch.cuda.synchronize()
+    if not torch.equal(seg_one, seg_two):
+        raise AssertionError("two segmented sums differ")
+    seg_abs = (seg_one - seg_ref).abs().max().item()
+    seg_rel = seg_abs / max(seg_ref.abs().max().item(), 1.0)
+    if seg_rel > 1e-5:
+        raise AssertionError(f"segmented sum off index_add_ by {seg_rel:.3g} "
+                             f"relative (budget 1e-5)")
+    print(f"segmented sum over {ids_big.numel()} sites into "
+          f"{big.num_triangles} rows: two runs bit-equal, {seg_rel:.3g} "
+          f"relative off index_add_ (budget 1e-5)", flush=True)
+
+    # 7d. main path three: render() on the 8,192-triangle scene, 128x128 and
+    # 512x512 (a 16-row band of the latter held to the plain version)
+    reset_counts()
+    out_big = rt.render(big, cfg_big)
+    torch.cuda.synchronize()
+    if counts() != (0, 1, 0, 0, 0):
+        raise AssertionError(f"render() on 8,192 triangles: launch counts "
+                             f"{counts()} (whole fwd, streamed fwd, whole "
+                             f"bwd, streamed bwd, segmented sum)")
+    k3f_launches = render_fwd.STREAMED_LAUNCHES
+    if tuple(out_big.image.shape) != (128, 128, 3) or not torch.isfinite(
+            out_big.image).all():
+        raise AssertionError("large-scene frame has the wrong shape or is "
+                             "not finite")
+    packed_equal(out_big.packed, out_big.image, "large-scene main path")
+    bmp = os.path.join(ROOT, "build", "chip_smoke_dense_8192.bmp")
+    save_bmp(bmp, out_big.packed)
+    cfg_512 = RenderConfig(width=512, height=512, aa_x=1, aa_y=1,
+                           shadow_samples=3, bounces=2)
+    reset_counts()
+    out_512 = rt.render(big, cfg_512)
+    torch.cuda.synchronize()
+    if counts() != (0, 1, 0, 0, 0):
+        raise AssertionError(f"render() at 512x512: launch counts {counts()}")
+    r0, n = 248, 16
+    band_ref = render_fwd.render_fused_plain(big, cfg_512, row0=r0, rows=n)[0]
+    worst, frac = images_match(out_512.image[r0:r0 + n], band_ref,
+                               "512x512 8192 triangles rows [248, 264)")
+    packed_equal(out_512.packed, out_512.image, "512x512 8192 triangles")
+    print(f"large-scene main path: render(dense_scene(8192), 128x128 aa4 s3 "
+          f"b2) -> {tuple(out_big.image.shape)}, 1 streamed forward launch, "
+          f"mean {out_big.image.mean().item():.4f}, wrote "
+          f"{os.path.relpath(bmp, ROOT)}; at 512x512 aa1 1 streamed launch, "
+          f"rows [{r0}, {r0 + n}) vs plain worst {worst:.3g}, beyond "
+          f"{TIGHT}: {frac:.3%}", flush=True)
+
+    # 7e. main path four: five train_steps on the 8,192-triangle scene
+    moved = dataclasses.replace(
+        big, light_pos=torch.tensor([0.25, -0.5, -0.7], device="cuda"))
+    with torch.no_grad():
+        target_big = rt.render_image(moved, cfg_big)
+    reset_counts()
+    live, losses_big = big, []
+    for step in range(5):
+        step_out = train_step(live, target_big, cfg_big, lr=2.0,
+                              trainable=("light_pos", "tri_rgb"))
+        live = step_out.scene
+        losses_big.append(step_out.loss.item())
+        if counts() != (0, step + 1, 0, step + 1, step + 1):
+            raise AssertionError(f"large-scene train_step {step}: launch "
+                                 f"counts {counts()}")
+        for k in ("light_pos", "tri_rgb"):
+            if not torch.isfinite(getattr(live, k)).all():
+                raise AssertionError(f"train_step {step}: {k} is not finite")
+    torch.cuda.synchronize()
+    big_train_launches = counts()
+    if not losses_big[4] < losses_big[0]:
+        raise AssertionError(f"loss did not fall over 5 steps: {losses_big}")
+    print(f"large-scene training path: 5 train_steps at 8192 triangles on "
+          f"light_pos, tri_rgb: {big_train_launches[1]} streamed forward, "
+          f"{big_train_launches[3]} streamed backward and "
+          f"{big_train_launches[4]} segmented-sum launches, no whole-table "
+          f"launch, loss {losses_big[0]:.6g} -> {losses_big[4]:.6g}, light "
+          f"{[round(v, 4) for v in live.light_pos.tolist()]}", flush=True)
+
+    # --- 8. the cut-over curve: forward device time of both kernels on
+    # dense scenes of growing size, each kernel wherever its tables fit, as
+    # render() launches it (quads detected); 128x128 aa4 s3 b2 (the sizes and
+    # the config of the JAX package's docs/crossover_r05.json), and seven
+    # sizes at 512x512 aa1, where many blocks share an SM ---
+    def curve(cfg, sizes):
+        points = []
+        for n_tri in sizes:
+            sc = dense_scene(n_tri)
+            quads = detect_shadow_quads(sc)
+            n_shd = len(quads[0]) + len(quads[1])
+            point = {"triangles": n_tri, "whole_ms": None}
+            if (render_fwd.shared_bytes(n_tri, sc.num_spheres, n_shd)
+                    <= render_fwd.SMEM_BUDGET_BYTES):
+                point["whole_ms"] = kernel_device_ms(
+                    lambda: render_fwd.render_fused_raw(
+                        sc, cfg, quads=quads, _kernel="whole"),
+                    "render_fwd_kernel", n=4)
+            point["streamed_ms"] = kernel_device_ms(
+                lambda: render_fwd.render_fused_raw(
+                    sc, cfg, quads=quads, _kernel="streamed"),
+                "render_fwd_streamed_kernel", n=4)
+            point["routes_to"] = ("streamed" if render_fwd.use_streamed(
+                n_tri, sc.num_spheres) else "whole")
+            points.append(point)
+        return points
+
+    cutover = {
+        "128x128 aa4 s3 b2": curve(
+            cfg_big, (26, 128, 256, 512, 768, 1024, 2048, 4096, 8192)),
+        "512x512 aa1 s3 b2": curve(cfg_512, (256, 320, 384, 448, 512, 768,
+                                             1024)),
+    }
+    print(json.dumps({"cutover_curve_ms": cutover, "card": card}), flush=True)
+
+    # --- 9. timing: CUDA events around one call — render() (quads detected
     # on every call), the forward wrapper with the quads detected once,
     # with and without the record, the backward wrapper, train_step, and
     # the plain versions; each kernel's own device time from the profiler.
@@ -590,43 +901,180 @@ def main() -> None:
               f"{' (in 8 row bands)' if name == 'full_1024' else ''} (n=3)",
               flush=True)
 
+    # the large scene: the same measurements on the streamed path
+    def big_fwd():
+        return rt.render_image(big, cfg_big, shadow_quads=q_big)
+
+    def big_fwd_train():
+        return render_fwd.render_fused_res(big, cfg_big, quads=None)
+
+    def big_bwd():
+        return render_bwd.render_replay_bwd(big, cfg_big, res_big_t, g_big)
+
+    def big_step():
+        return train_step(big, target_big, cfg_big, lr=1e-3,
+                          trainable=("light_pos", "tri_rgb"))
+
+    def big_segsum():
+        return render_bwd.segment_sum(ids_big, rows_big, big.num_triangles)
+
+    def median_ms(fn, warmup, n):
+        return statistics.median(time_frames(fn, warmup, n))
+
+    detect_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        detect_shadow_quads(big)
+        detect_ms.append((time.perf_counter() - t0) * 1e3)
+    detect_ms = statistics.median(detect_ms)
+    lg = {
+        "render": median_ms(lambda: rt.render(big, cfg_big), 2, 5),
+        "render_512": median_ms(lambda: rt.render(big, cfg_512), 1, 3),
+        "fwd": median_ms(big_fwd, 2, 5),
+        "fwd_train": median_ms(big_fwd_train, 2, 5),
+        "bwd": median_ms(big_bwd, 2, 5),
+        "step": median_ms(big_step, 2, 5),
+        "segsum": median_ms(big_segsum, 2, 5),
+        "index_add": median_ms(lambda: render_bwd.segment_sum_plain(
+            ids_big, rows_big, big.num_triangles), 2, 5),
+        "plain": median_ms(lambda: rt.render_image(big, cfg_big,
+                                                   backend="torch"), 1, 2),
+        "plain_bwd": median_ms(lambda: render_bwd.render_replay_bwd_plain(
+            big, cfg_big, res_big_t, g_big), 1, 3),
+        "fwd_dev": kernel_device_ms(big_fwd, "render_fwd_streamed_kernel"),
+        "fwd_train_dev": kernel_device_ms(big_fwd_train,
+                                          "render_fwd_streamed_kernel"),
+        "fwd_512_dev": kernel_device_ms(
+            lambda: rt.render_image(big, cfg_512, shadow_quads=q_big),
+            "render_fwd_streamed_kernel", n=4),
+        "bwd_dev": kernel_device_ms(big_bwd, "render_bwd_streamed_kernel"),
+        "segsum_dev": kernel_device_ms(big_bwd, "segment_sum_kernel"),
+    }
+    res_512 = render_fwd.render_fused_res(big, cfg_512, quads=q_big)[2]
+    lg["fwd_bound"] = bound(*fwd_work(cfg_big, big, q_big, res_big, False))
+    lg["fwd_train_bound"] = bound(*fwd_work(cfg_big, big, None, res_big_t, True))
+    lg["fwd_512_bound"] = bound(*fwd_work(cfg_512, big, q_big, res_512, False))
+    lg["bwd_bound"] = bound(*bwd_work(cfg_big, big, res_big_t, streamed=True))
+    lg["segsum_bound"] = bound(*segment_sum_work(big.num_triangles,
+                                                 render_bwd.site_ids(res_big_t)))
+    print(f"time dense_8192 128x128 aa4 s3 b2 [{card}]: render() "
+          f"{lg['render']:.4f} ms, of which detect_shadow_quads on the host "
+          f"{detect_ms:.2f} ms (host clock, median of 3); forward wrapper "
+          f"{lg['fwd']:.4f} ms, streamed forward device {lg['fwd_dev']:.4f} "
+          f"ms, bound {lg['fwd_bound'][0]:.4f} ms by {lg['fwd_bound'][1]}; as "
+          f"train_step launches it (record, no quads): wrapper "
+          f"{lg['fwd_train']:.4f} ms, device {lg['fwd_train_dev']:.4f} ms, "
+          f"bound {lg['fwd_train_bound'][0]:.4f} ms by "
+          f"{lg['fwd_train_bound'][1]}; backward wrapper {lg['bwd']:.4f} ms, "
+          f"streamed backward device {lg['bwd_dev']:.4f} ms, bound "
+          f"{lg['bwd_bound'][0]:.4f} ms by {lg['bwd_bound'][1]}; segmented "
+          f"sum wrapper (sort, bounds, kernel) {lg['segsum']:.4f} ms, kernel "
+          f"device {lg['segsum_dev']:.4f} ms, bound "
+          f"{lg['segsum_bound'][0]:.4f} ms by {lg['segsum_bound'][1]}, "
+          f"index_add_ {lg['index_add']:.4f} ms; train_step {lg['step']:.4f} "
+          f"ms; plain forward {lg['plain']:.2f} ms, plain backward "
+          f"{lg['plain_bwd']:.2f} ms; at 512x512 aa1: render() "
+          f"{lg['render_512']:.4f} ms, streamed forward device "
+          f"{lg['fwd_512_dev']:.4f} ms, bound {lg['fwd_512_bound'][0]:.4f} ms "
+          f"by {lg['fwd_512_bound'][1]}", flush=True)
+
+    # the whole-table backward past 32 objects at a real size: 600
+    # triangles at the large-scene config, beside the streamed backward on
+    # the same record
+    res6b = render_fwd.render_fused_res(d600, cfg_big, _kernel="whole")[2]
+    g6b = seeded_cotangent((128, 128, 3), 61)
+    k2p_rel, k2p_abs = check_backward(
+        d600, cfg_big, res6b, seed=61,
+        what="128x128 600 triangles, whole-table", kernel="whole")
+
+    def bwd600(kernel):
+        return lambda: render_bwd.render_replay_bwd(d600, cfg_big, res6b, g6b,
+                                                    _kernel=kernel)
+
+    k2p = {
+        "ms": median_ms(bwd600("whole"), 2, 5),
+        "dev": kernel_device_ms(bwd600("whole"), "render_bwd_kernel"),
+        "bound": bound(*bwd_work(cfg_big, d600, res6b)),
+        "streamed_ms": median_ms(bwd600("streamed"), 2, 5),
+        "streamed_dev": kernel_device_ms(bwd600("streamed"),
+                                         "render_bwd_streamed_kernel"),
+        "streamed_segsum_dev": kernel_device_ms(bwd600("streamed"),
+                                                "segment_sum_kernel"),
+        "streamed_bound": bound(*bwd_work(cfg_big, d600, res6b, streamed=True)),
+        "plain": median_ms(lambda: render_bwd.render_replay_bwd_plain(
+            d600, cfg_big, res6b, g6b), 1, 3),
+    }
+    print(f"time dense_600 128x128 aa4 s3 b2 backward [{card}]: whole-table "
+          f"wrapper {k2p['ms']:.4f} ms, device {k2p['dev']:.4f} ms, bound "
+          f"{k2p['bound'][0]:.4f} ms by {k2p['bound'][1]}; streamed wrapper "
+          f"{k2p['streamed_ms']:.4f} ms, device {k2p['streamed_dev']:.4f} ms "
+          f"+ segmented sum {k2p['streamed_segsum_dev']:.4f} ms, bound "
+          f"{k2p['streamed_bound'][0]:.4f} ms by {k2p['streamed_bound'][1]}; "
+          f"plain {k2p['plain']:.2f} ms", flush=True)
+
     full = times["full_1024"]
-    kernels = [{
-        "name": "render_fwd",
-        "route": "cuda",
-        "source": "uob_raytracer_tpu_torch/csrc/render_fwd.cu",
-        "replaces": "uob_raytracer_tpu/kernels/render_fwd.py:649",
-        "launches": launches,
-        "launches_5_train_steps": train_launches[0],
-        "max_abs_err": worst_by_cfg["full_1024"],
-        "ms": full["fwd"],
-        "plain_ms": full["plain"],
-        "bound_ms": full["fwd_bound"][0],
-        "bound_by": full["fwd_bound"][1],
-        "library_ms": None,
-        "device_ms": full["fwd_dev"],
-        "device_ms_residuals": full["fwd_rec_dev"],
-        "bound_ms_residuals": full["fwd_rec_bound"][0],
-        "device_ms_train_step": full["fwd_train_dev"],
-        "bound_ms_train_step": full["fwd_train_bound"][0],
-        "render_ms": full["render"],
-    }, {
-        "name": "render_bwd",
-        "route": "cuda",
-        "source": "uob_raytracer_tpu_torch/csrc/render_bwd.cu",
-        "replaces": "uob_raytracer_tpu/kernels/render_bwd.py:366",
-        "launches": train_launches[1],
-        "launches_per_step": train_launches[1] // 5,
-        "max_abs_err": bwd_abs,
-        "max_rel_err": bwd_rel,
-        "ms": full["bwd"],
-        "plain_ms": full["plain_bwd"],
-        "bound_ms": full["bwd_bound"][0],
-        "bound_by": full["bwd_bound"][1],
-        "library_ms": None,
-        "device_ms": full["bwd_dev"],
-        "train_step_ms": full["step"],
-    }]
+    src = "uob_raytracer_tpu_torch/csrc/"
+    jax_fwd = "uob_raytracer_tpu/kernels/render_fwd.py"
+    jax_bwd = "uob_raytracer_tpu/kernels/render_bwd.py"
+
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
+              device_ms, library_ms=None, **more):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms, "device_ms": device_ms, **more}
+
+    kernels = [
+        entry("K1 render_fwd (whole-table)", "render_fwd.cu",
+              f"{jax_fwd}:649", launches, worst_by_cfg["full_1024"],
+              full["fwd"], full["plain"], full["fwd_bound"], full["fwd_dev"],
+              at="full_1024, render()", render_ms=full["render"]),
+        entry("K1r render_fwd with residuals", "render_fwd.cu",
+              f"{jax_fwd}:670", train_launches[0], worst_by_cfg["full_1024"],
+              full["fwd_rec"], full["plain"], full["fwd_train_bound"],
+              full["fwd_train_dev"], at="full_1024, 5 train_steps (record, "
+              "no quads)", device_ms_with_quads=full["fwd_rec_dev"],
+              bound_ms_with_quads=full["fwd_rec_bound"][0]),
+        entry("K2 render_bwd (whole-table)", "render_bwd.cu",
+              f"{jax_bwd}:366", train_launches[1], bwd_abs, full["bwd"],
+              full["plain_bwd"], full["bwd_bound"], full["bwd_dev"],
+              at="full_1024, 5 train_steps", max_rel_err=bwd_rel,
+              train_step_ms=full["step"]),
+        entry("K2' render_bwd past 32 objects", "render_bwd.cu",
+              f"{jax_bwd}:126", train_launches[1], k2p_abs, k2p["ms"],
+              k2p["plain"], k2p["bound"], k2p["dev"],
+              at="the same kernel and count as K2; timed at 600 triangles "
+              "128x128 aa4 s3 b2", max_rel_err=k2p_rel,
+              streamed_device_ms_same_record=k2p["streamed_dev"],
+              streamed_segment_sum_device_ms=k2p["streamed_segsum_dev"]),
+        entry("K3f render_fwd_streamed", "render_fwd_streamed.cu",
+              f"{jax_fwd}:263", k3f_launches, worst_big, lg["fwd"],
+              lg["plain"], lg["fwd_bound"], lg["fwd_dev"],
+              at="dense_8192 128x128 aa4 s3 b2, render()",
+              render_ms=lg["render"], detect_shadow_quads_host_ms=detect_ms,
+              launches_5_train_steps=big_train_launches[1],
+              device_ms_train_step=lg["fwd_train_dev"],
+              bound_ms_train_step=lg["fwd_train_bound"][0],
+              device_ms_512=lg["fwd_512_dev"],
+              bound_ms_512=lg["fwd_512_bound"][0],
+              render_ms_512=lg["render_512"]),
+        entry("K3b render_bwd_streamed", "render_bwd_streamed.cu",
+              f"{jax_bwd}:381", big_train_launches[3], k3b_abs, lg["bwd"],
+              lg["plain_bwd"], lg["bwd_bound"], lg["bwd_dev"],
+              at="dense_8192 128x128 aa4 s3 b2, 5 train_steps",
+              max_rel_err=k3b_rel, train_step_ms=lg["step"]),
+        entry("segment_sum (K3b's triangle cotangents)",
+              "render_bwd_streamed.cu", f"{jax_bwd}:990",
+              big_train_launches[4], seg_abs, lg["segsum"], lg["index_add"],
+              lg["segsum_bound"], lg["segsum_dev"],
+              library_ms=lg["index_add"],
+              at="dense_8192 128x128 aa4 s3 b2, 5 train_steps; plain version "
+              "= index_add_"),
+    ]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']}: no launch on its main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

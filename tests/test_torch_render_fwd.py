@@ -189,10 +189,25 @@ def test_kernel_row_band_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_scenes_beyond_its_tables(cuda_device):
+    """A scene beyond the whole-table kernel's tables no longer raises: it
+    routes to the streamed kernel and renders the plain version's frame.
+    Only a pinned whole-table kernel refuses tables that do not fit."""
     rs = np.random.RandomState(0)
     verts = rs.uniform(-0.9, 0.9, (600, 3, 3)).astype(np.float32)
     big = trt.add_triangles(trt.cornell_box(device=cuda_device), verts,
                             np.full((600, 3), 0.5, np.float32),
                             np.ones(600, np.float32))
-    with pytest.raises(NotImplementedError, match="streamed"):
-        tfwd.render_fused_raw(big, trt.RenderConfig(width=16, height=8))
+    cfg = trt.RenderConfig(width=16, height=8)
+    assert tfwd.use_streamed(big.num_triangles, big.num_spheres)
+    before = (tfwd.LAUNCHES, tfwd.STREAMED_LAUNCHES)
+    img, packed = tfwd.render_fused_raw(big, cfg)
+    torch.cuda.synchronize()
+    assert (tfwd.LAUNCHES, tfwd.STREAMED_LAUNCHES) == (before[0], before[1] + 1)
+    ref = tfwd.render_fused_plain(big, cfg)[0]
+    assert_images_match(img.cpu().numpy(), ref.cpu().numpy(), what="626")
+    assert torch.equal(packed.view(torch.int32), pack_argb(img).view(torch.int32))
+    huge = trt.add_triangles(big, np.tile(verts, (4, 1, 1)),
+                             np.full((2400, 3), 0.5, np.float32),
+                             np.ones(2400, np.float32))
+    with pytest.raises(ValueError, match="shared memory"):
+        tfwd.render_fused_raw(huge, cfg, _kernel="whole")

@@ -1,0 +1,254 @@
+// Streamed forward render kernel for Hopper (sm_90a): the large-scene
+// variant of render_fwd.cu, one launch per frame for any triangle count.
+//
+// Replaces the streamed mode of the TPU kernel kernels/render_fwd.py:
+// _render_kernel(streamed=True) of the JAX package (_streamed_scan,
+// _streamed_tri_scan, the merged primary scan and the mixed quad/triangle
+// occlusion scan). It computes the same frame and the same decision record
+// as the whole-table kernel, with the triangle table tri [T,19] and the
+// optional shadow table shd [n_shd,13] left in device memory: a block
+// stages them tile by tile (kThreads rows at a time) into shared memory and
+// all its threads scan the tile. Spheres and the camera row are staged
+// whole. The tables are read as pack_scene / pack_shadow build them; the
+// last tile is simply shorter (the TPU kernel's 128-lane packed rows are
+// Mosaic's alignment rule and are not carried over).
+//
+// Design (simple first):
+// - One thread per pixel, looping over its A rays, as the whole-table
+//   kernel. Every per-row test, the bounce step, the shading set-up, the
+//   RNG and the pack are the functions of fwd_common.cuh that the
+//   whole-table kernel calls, rows come in index order with a strict < on
+//   t, and ids are global triangle indices: a scene that both kernels can
+//   run gives the same image and the same record bit for bit.
+// - A cooperative tile load needs every thread of the block at the same
+//   scan, so no thread leaves early (threads past the ragged edge carry no
+//   ray and only load) and every loop around a scan is block-uniform: the
+//   bounce loop runs while ANY ray of the block is active and the
+//   occlusion scan of sample s runs while any ray of the block still
+//   looks for an occluder (__syncthreads_or), with finished rays masked.
+//   A ray does exactly the tests it does in the whole-table kernel, up to
+//   the end of the tile in which its sample met its first occluder.
+// - The primary hit keeps its shared-origin form: each thread computes the
+//   seven invariants of the tile row it loaded. The winner's attributes
+//   (normal, colour, material) are read from device memory by index after
+//   the scan, which a CUDA thread can do by itself, so the table is swept
+//   once per scan and nothing is merged into the scan.
+// - Each sweep: barrier, every thread copies one row of the tile from
+//   device memory (the 622 KB table of 8,192 triangles stays in the L2
+//   cache), barrier, scan. No cp.async or TMA pipeline yet.
+//
+// What bounds it on this card: the FP32 instruction rate (rays x triangles
+// x about 26 to 70 operations per test); the table traffic is L2 reads of
+// 76 B per 128 row tests. At 128x128 pixels the grid is 128 blocks of 4
+// warps, less than one warp per scheduler: see PERF.md.
+//
+// Built with --fmad=false, never --use_fast_math (see render_fwd.cu).
+
+#include "fwd_common.cuh"
+
+namespace {
+
+// One tile of the table at g (row stride `cols` floats, n_rows rows in
+// all), rows [row0, row0 + kThreads): thread r copies row row0 + r. The
+// caller has a barrier before (the previous tile is no longer read) and
+// after. Returns the number of rows in the tile.
+__device__ __forceinline__ int load_tile(float* tile, const float* __restrict__ g, int cols,
+                                         int n_rows, int row0) {
+  const int n = min(kThreads, n_rows - row0);
+  if ((int)threadIdx.x < n) {
+    const float* src = g + (size_t)(row0 + threadIdx.x) * cols;
+    float* dst = tile + threadIdx.x * cols;
+    for (int c = 0; c < cols; ++c) dst[c] = src[c];
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    render_fwd_streamed_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
+                               const float* __restrict__ g_cam, const float* __restrict__ g_shd,
+                               float* __restrict__ img, uint32_t* __restrict__ packed,
+                               int* __restrict__ pid, float* __restrict__ lit_out,
+                               int* __restrict__ bid, Params P) {
+  extern __shared__ float smem[];
+  float* tile = smem;                       // [kThreads][kTriCols]
+  float* prim = tile + kThreads * kTriCols;  // [kThreads][kPrimCols]
+  float* sph = prim + kThreads * kPrimCols;
+  float* cam = sph + P.n_sph * kSphCols;
+
+  for (int i = threadIdx.x; i < P.n_sph * kSphCols; i += blockDim.x) sph[i] = g_sph[i];
+  for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) cam[i] = g_cam[i];
+  __syncthreads();
+
+  const size_t n_pix = (size_t)P.rows * P.width;
+  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // threads past the ragged edge stay: they carry no ray but load tiles
+  // and meet every barrier
+  const bool in_img = p < n_pix;
+  const int py = in_img ? (int)(p / P.width) : 0;
+  const int px = in_img ? (int)(p - (size_t)py * P.width) : 0;
+  const uint32_t gid = (uint32_t)((P.row0 + py) * P.width + px);  // < 2^24
+
+  const V3 cam_pos = load3(cam + 9);
+  const V3 r0 = load3(cam), r1 = load3(cam + 3), r2 = load3(cam + 6);
+  const V3 light = load3(cam + 12), light_rgb = load3(cam + 15), indirect = load3(cam + 18);
+  // shadow-pass occlusion geometry: the quad-merged table if given
+  const float* occ_tbl = P.n_shd ? g_shd : g_tri;
+  const OccTable occ = occ_table(P);
+  const int S = P.shadow_samples;
+
+  const float bx0 = (float)px * (float)P.aa_x - P.half_w;
+  const float by0 = (float)(P.row0 + py) * (float)P.aa_y - P.half_h;
+  const int A = P.aa_x * P.aa_y;
+  V3 acc = make(0.0f, 0.0f, 0.0f);
+
+  for (int a = 0; a < A; ++a) {
+    const V3 d = primary_dir(P, r0, r1, r2, bx0, by0, a);
+
+    // --- primary nearest hit, shared-origin form, tile by tile ---
+    float t_b = kBig;
+    int idf = -1;
+    for (int base = 0; base < P.n_tri; base += kThreads) {
+      __syncthreads();
+      const int n = load_tile(tile, g_tri, kTriCols, P.n_tri, base);
+      if ((int)threadIdx.x < n)
+        prim_invariants(cam_pos, tile + threadIdx.x * kTriCols, prim + threadIdx.x * kPrimCols);
+      __syncthreads();
+      if (in_img)
+        for (int i = 0; i < n; ++i)
+          prim_test(d, tile + i * kTriCols, prim + i * kPrimCols, base + i, t_b, idf);
+    }
+    if (in_img) prim_spheres(P, sph, cam_pos, d, t_b, idf);
+    const HitInfo ph = prim_finish(P, g_tri, sph, cam_pos, d, t_b, idf);
+    const bool hit = in_img && t_b < kBig;
+    if (pid && in_img) pid[a * n_pix + p] = idf;
+    // CPU-ref shades ANY hit triangle (no material logic, skeleton.cpp:268)
+    const bool prim_diffuse = P.cpu_ref ? hit : (hit && ph.mat > 0.0f);
+
+    // --- specular bounce loop: while any ray of the block is specular ---
+    bool term_valid = false;
+    V3 term_pos = make(0.0f, 0.0f, 0.0f), term_nrm = term_pos, term_rgb = term_pos;
+    float weight = 1.0f;
+    {
+      bool active = hit && ph.mat <= 0.0f;
+      V3 dcur = d, cpos = ph.pos, cnrm = ph.nrm;
+      float cmat = ph.mat, medium = P.ior_air;
+      int bi = 0;
+      for (; bi < P.bounces; ++bi) {
+        if (!__syncthreads_or(active)) break;  // block-uniform
+        Bounce b;
+        b.dead = false;
+        if (active) {
+          b = bounce_step(P, dcur, cpos, cnrm, cmat, medium, weight);
+          // the reference's NaN direction renders black: the ray retires
+          // and this step reads "inactive"
+          if (b.dead) active = false;
+        }
+        Best best = no_best();
+        const V3 nd = active ? make(-b.ndir.x, -b.ndir.y, -b.ndir.z) : make(0.0f, 0.0f, 0.0f);
+        for (int base = 0; base < P.n_tri; base += kThreads) {
+          __syncthreads();
+          const int n = load_tile(tile, g_tri, kTriCols, P.n_tri, base);
+          __syncthreads();
+          if (active)
+            for (int i = 0; i < n; ++i) tri_test(b.nstart, nd, tile + i * kTriCols, base + i, best);
+        }
+        int id_rec = -1;
+        if (active) {
+          const HitInfo h = nearest_finish(P, g_tri, sph, b.nstart, b.ndir, best);
+          id_rec = h.id;
+          const bool hit_n = h.t < kBig;
+          if (hit_n && h.mat > 0.0f) {
+            term_valid = true;
+            term_pos = h.pos;
+            term_nrm = h.nrm;
+            term_rgb = h.rgb;
+          }
+          active = hit_n && h.mat <= 0.0f;
+          if (active) {
+            dcur = b.ndir;
+            cpos = h.pos;
+            cnrm = h.nrm;
+            cmat = h.mat;
+            medium = b.nmed;
+          }
+        }
+        if (bid && in_img) bid[((size_t)bi * A + a) * n_pix + p] = id_rec;
+      }
+      // steps no ray of the block ran read "inactive"
+      if (bid && in_img)
+        for (; bi < P.bounces; ++bi) bid[((size_t)bi * A + a) * n_pix + p] = -1;
+    }
+
+    // --- one soft-shadow pass at the unified shading point ---
+    const bool shading = prim_diffuse || term_valid;
+    Shade sh;
+    sh.sdir = sh.sstart = make(0.0f, 0.0f, 0.0f);
+    sh.radius_sq = sh.lam_base = 0.0f;
+    if (shading)
+      sh = shade_setup(P, light, sel(prim_diffuse, ph.pos, term_pos),
+                       sel(prim_diffuse, ph.nrm, term_nrm));
+    Rng rng = rng_seed(gid);
+    float lit = (float)S;
+    for (int s = 0; s < S; ++s) {
+      float dds = 0.0f;
+      V3 dir = sh.sdir;
+      if (shading) sample_dir(P, rng.s0, rng.s1, rng.s2, sh.sdir, sh.radius_sq, dir, dds);
+      // this ray still looks for the sample's first occluder
+      bool seeking = shading;
+      for (int base = 0; base < occ.rows; base += kThreads) {
+        if (!__syncthreads_or(seeking)) break;  // block-uniform, and the barrier
+        const int n = load_tile(tile, occ_tbl, occ.cols, occ.rows, base);
+        __syncthreads();
+        if (seeking)
+          for (int i = 0; i < n; ++i) {
+            const float* R = tile + i * occ.cols;
+            if (!casts_shadow(P, R, occ.mcol)) continue;
+            if (occ_row(R, occ.ecol, base + i < P.n_quads, sh.sstart, dir, dds, sh.radius_sq)) {
+              seeking = false;
+              break;
+            }
+          }
+      }
+      // seeking: no row occluded it, the spheres remain
+      if (shading && (!seeking || occ_spheres(P, sph, sh.sstart, dir, dds, sh.radius_sq)))
+        lit = lit - 1.0f;
+    }
+    V3 color = make(0.0f, 0.0f, 0.0f);
+    float lit_rec = 0.0f;
+    if (shading) {
+      lit_rec = lit;
+      color = shade_color(P, lit, sh.lam_base, light_rgb, indirect, term_valid, term_rgb, weight,
+                          ph.rgb);
+    }
+    if (lit_out && in_img) lit_out[a * n_pix + p] = lit_rec;
+    acc = add(acc, color);
+  }
+
+  if (in_img) write_pixel(img, packed, p, scale(P.inv_a, acc));
+}
+
+}  // namespace
+
+// Launches one frame on `stream`; arguments as render_fwd_launch
+// (render_fwd.cu). tri [n_tri,19] and shd [n_shd,13] are read from device
+// memory tile by tile, so neither count is limited by shared memory.
+// Returns cudaGetLastError() of the launch.
+extern "C" int render_fwd_streamed_launch(const float* tri, const float* sph, const float* cam,
+                                          const float* shd, float* img, uint32_t* packed,
+                                          int* pid, float* lit, int* bid, const int* ip,
+                                          const float* fp, void* stream) {
+  const Params P = make_params(ip, fp);
+  const long long n_pix = (long long)P.rows * P.width;
+  if (n_pix == 0) return 0;
+  const size_t smem = sizeof(float) * ((size_t)kThreads * (kTriCols + kPrimCols) +
+                                       (size_t)P.n_sph * kSphCols + kCamCols);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        render_fwd_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
+  render_fwd_streamed_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      tri, sph, cam, shd, img, packed, pid, lit, bid, P);
+  return (int)cudaGetLastError();
+}

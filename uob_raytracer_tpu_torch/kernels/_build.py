@@ -25,10 +25,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 # --fmad=false: no FMA contraction, so the kernels can be held tightly to
 # their plain torch versions (see the note in csrc/render_fwd.cu). Never
 # --use_fast_math: division and sqrt stay IEEE. -Xptxas -v reports each
-# kernel's registers, shared memory and spills into the build log.
+# kernel's registers, shared memory and spills into the build log. -t 0
+# compiles the sources side by side, one thread per CPU at most.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "-t", "0")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -1,7 +1,7 @@
-"""The fused forward render kernel: scene tables and its launch wrappers.
+"""The fused forward render kernels: scene tables and the launch wrappers.
 
-``render_fused_raw`` renders a frame in ONE launch of the CUDA kernel in
-``csrc/render_fwd.cu``, the Hopper counterpart of the TPU kernel
+``render_fused_raw`` renders a frame in ONE launch of a CUDA kernel, the
+Hopper counterpart of the TPU kernel
 ``uob_raytracer_tpu/kernels/render_fwd.py:_render_kernel``: AA ray
 generation, brute-force nearest hit, the specular bounce loop, one
 soft-shadow pass at the unified shading point, the AA mean and the ARGB
@@ -11,11 +11,20 @@ that the path-replay backward consumes. The scene goes to the kernel as
 the flat tables ``pack_scene`` and ``pack_shadow`` build, with the same
 layouts as the JAX package's.
 
+There are two kernels, which give the same frame and record bit for bit on
+a scene both can run: the whole-table kernel (``csrc/render_fwd.cu``)
+stages the tables in shared memory, and the streamed kernel
+(``csrc/render_fwd_streamed.cu``, the counterpart of ``_render_kernel``'s
+``streamed=True`` mode) leaves them in device memory and stages them tile
+by tile, for any triangle count. ``use_streamed`` decides between them
+from the scene's size alone, for the forward and the backward alike.
+
 The kernel's plain torch versions, ``render_fused_plain`` and
 ``render_fused_res_plain`` (``render_flat`` and the AA mean), live here
 beside it. For a scene on the CPU the wrappers run those plain versions;
 for a CUDA scene they launch the kernel or raise, and never fall back.
-``LAUNCHES`` counts the launches.
+``LAUNCHES`` counts the whole-table kernel's launches,
+``STREAMED_LAUNCHES`` the streamed kernel's.
 """
 from __future__ import annotations
 
@@ -34,17 +43,27 @@ from ..ops.shading import shade, shade_cpu_ref
 from ..scene import Scene
 from . import _build
 
-# Kernel launches since import (a plain counter: a run can show that its
-# main path went through the kernel).
+# Kernel launches since import (plain counters: a run can show that its
+# main path went through a kernel): the whole-table and the streamed kernel.
 LAUNCHES = 0
+STREAMED_LAUNCHES = 0
 
 TRI_COLS, PRIM_COLS, SPH_COLS, CAM_COLS, SHD_COLS = 19, 7, 12, 21, 13
-# The JAX package routes scenes above this many triangles to its streamed
-# kernel, which has no Hopper counterpart yet. Not a Hopper constant: the
-# streamed kernel's port sets the cut-over from an H100 measurement.
-MAX_TRIANGLES = 512
+OBJ_COLS = 17          # the whole-table backward's staged row
+GRAD_COLS = 16         # a cotangent row: v0 e1 e2 n rgb r2
+THREADS = 128          # threads per block of every render kernel
 # Dynamic shared memory one block may opt into on an H100 (227 KB).
 SMEM_BUDGET_BYTES = 232448
+# The whole-table kernels take a scene of at most this many triangles even
+# where its tables would fit shared memory. Set from the forward cut-over
+# curve that chip_smoke.py measures on the H100 (PERF.md, "cut-over"): the
+# largest measured size at which the whole-table forward is at least as
+# fast at both image sizes. At 128x128 (one block per SM either way) it is
+# 2-4% faster at every size it fits; at 512x512 its tables (156 B per
+# triangle with a shadow table) leave room for fewer blocks per SM than the
+# streamed kernel's registers allow from 384 triangles on, and it loses by
+# 7% there, 27% at 512 and 57% at 1,024.
+STREAM_ABOVE_TRIANGLES = 320
 
 _F = np.float32
 
@@ -122,6 +141,38 @@ def shared_bytes(n_tri: int, n_sph: int, n_shd: int) -> int:
                 + n_shd * SHD_COLS)
 
 
+def bwd_shared_bytes(n_obj: int) -> int:
+    """Shared memory one block of the whole-table backward kernel uses
+    (must match the launcher in csrc/render_bwd.cu): the object table, the
+    camera row, and one cotangent accumulator per warp."""
+    warps = THREADS // 32
+    return 4 * (n_obj * OBJ_COLS + CAM_COLS
+                + warps * (n_obj * GRAD_COLS + CAM_COLS))
+
+
+def use_streamed(n_tri: int, n_sph: int) -> bool:
+    """Whether a scene of this size goes to the streamed kernels rather
+    than the whole-table ones: decided from the scene alone, once for the
+    forward and the backward. Whole-table while the triangle count is
+    within ``STREAM_ABOVE_TRIANGLES`` (where the measured curve says the
+    whole-table forward is at least as fast) and the tables fit one
+    block's shared memory both ways: the forward's with a shadow table as
+    long as the triangle table (104 + 52 B per triangle), the backward's
+    object table and per-warp accumulators (324 B per object)."""
+    return (n_tri > STREAM_ABOVE_TRIANGLES
+            or shared_bytes(n_tri, n_sph, n_tri) > SMEM_BUDGET_BYTES
+            or bwd_shared_bytes(n_tri + n_sph) > SMEM_BUDGET_BYTES)
+
+
+def pick_kernel(n_tri: int, n_sph: int, pin) -> bool:
+    """True for the streamed kernels. ``pin`` is the wrappers' private
+    ``_kernel`` argument: None (``use_streamed`` decides), or "whole" /
+    "streamed" to pin one for a measurement."""
+    if pin not in (None, "whole", "streamed"):
+        raise ValueError(f"_kernel={pin!r}: None, 'whole' or 'streamed'")
+    return use_streamed(n_tri, n_sph) if pin is None else pin == "streamed"
+
+
 def launch_params(cfg: RenderConfig, row0: int, rows: int, n_tri: int,
                   n_sph: int, n_quads: int, n_shd: int):
     """The launcher's host parameter arrays (ints, floats). The float32
@@ -139,8 +190,8 @@ def launch_params(cfg: RenderConfig, row0: int, rows: int, n_tri: int,
             (ctypes.c_float * len(floats))(*[float(f) for f in floats]))
 
 
-def _declare(lib: ctypes.CDLL):
-    fn = lib.render_fwd_launch
+def _declare(lib: ctypes.CDLL, streamed: bool):
+    fn = lib.render_fwd_streamed_launch if streamed else lib.render_fwd_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int),
                                            ctypes.POINTER(ctypes.c_float),
                                            ctypes.c_void_p]
@@ -162,13 +213,16 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32):
 # --------------------------------------------------------------------------
 
 def _pick_chunk_rows(cfg: RenderConfig, rows: int | None = None,
-                     target_rays: int = 1 << 18) -> int:
+                     target_rays: int = 1 << 18, n_tri: int = 0) -> int:
     """Largest divisor of the row count (H by default) keeping
-    rows*W*A near the target ray count per chunk (bounds peak memory of
-    the [rays, triangles] broadcast)."""
+    rows*W*A near the target ray count per chunk. The target bounds the
+    peak memory of the [rays, triangles] broadcast, so it shrinks in
+    proportion to the triangle count above 32: at most 2^23 (ray,
+    triangle) pairs, 34 MB per float32 intermediate, until one row alone
+    is more."""
     rows = cfg.height if rows is None else rows
     per_row = cfg.width * cfg.aa_rays
-    want = max(1, target_rays // per_row)
+    want = max(1, target_rays * 32 // max(n_tri, 32) // per_row)
     divs = [d for d in range(1, rows + 1) if rows % d == 0]
     return max(d for d in divs if d <= want) if any(d <= want for d in divs) else 1
 
@@ -186,7 +240,7 @@ def render_flat(scene: Scene, cfg: RenderConfig, chunk_rows: int | None = None,
     W = cfg.width
     A = dirs.shape[2]
     if chunk_rows is None:
-        chunk_rows = _pick_chunk_rows(cfg, rows)
+        chunk_rows = _pick_chunk_rows(cfg, rows, n_tri=scene.num_triangles)
     if rows % chunk_rows:
         raise ValueError(
             f"chunk_rows={chunk_rows} must divide the {rows} rows rendered")
@@ -250,7 +304,7 @@ def _band(cfg: RenderConfig, row0, rows) -> tuple[int, int]:
 
 
 def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
-                     rows: int | None = None, quads=None):
+                     rows: int | None = None, quads=None, _kernel=None):
     """Forward render of one frame: (image [rows, W, 3] float32, packed
     [rows, W] uint32), on the scene's device.
 
@@ -260,16 +314,17 @@ def render_fused_raw(scene: Scene, cfg: RenderConfig, row0=None,
     scan (the plain version scans triangles and ignores it). cfg.cpu_ref
     runs the same kernel in CPU-ref semantics (skeleton.cpp:184-279).
     A CPU scene runs ``render_fused_plain``. Not differentiable by itself:
-    ``render.render_image`` wires the path-replay backward."""
+    ``render.render_image`` wires the path-replay backward. ``_kernel``
+    pins the whole-table or the streamed kernel (``pick_kernel``)."""
     row0, rows = _band(cfg, row0, rows)
     if scene.device.type == "cpu":
         with torch.no_grad():
             return render_fused_plain(scene, cfg, row0, rows)
-    return _launch(scene, cfg, row0, rows, quads, record=False)[:2]
+    return _launch(scene, cfg, row0, rows, quads, False, _kernel)[:2]
 
 
 def render_fused_res(scene: Scene, cfg: RenderConfig, row0=None,
-                     rows: int | None = None, quads=None):
+                     rows: int | None = None, quads=None, _kernel=None):
     """Forward render that also returns the decision residuals consumed by
     the path-replay backward: (image, packed, Residuals). The same single
     kernel launch as ``render_fused_raw`` with its residual outputs on. A
@@ -278,26 +333,23 @@ def render_fused_res(scene: Scene, cfg: RenderConfig, row0=None,
     if scene.device.type == "cpu":
         with torch.no_grad():
             return render_fused_res_plain(scene, cfg, row0, rows)
-    return _launch(scene, cfg, row0, rows, quads, record=True)
+    return _launch(scene, cfg, row0, rows, quads, True, _kernel)
 
 
 def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
-            record: bool):
-    """One launch of render_fwd_kernel on the scene's CUDA device:
-    (image, packed, Residuals or None)."""
-    global LAUNCHES
+            record: bool, pin=None):
+    """One launch of the whole-table or the streamed forward kernel on the
+    scene's CUDA device: (image, packed, Residuals or None)."""
+    global LAUNCHES, STREAMED_LAUNCHES
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"render_fwd: scene on {dev}; the kernel needs a "
                          f"CUDA device (its plain version the CPU)")
 
     n_tri = scene.num_triangles
-    if n_tri > MAX_TRIANGLES:
-        raise NotImplementedError(
-            f"{n_tri} triangles: scenes above {MAX_TRIANGLES} need the "
-            f"streamed kernel, which is not ported yet")
     # CPU-ref ignores spheres entirely (the vestigial path predates them)
     n_sph = 0 if cfg.cpu_ref else scene.num_spheres
+    streamed = pick_kernel(n_tri, scene.num_spheres, pin)
     # the tables feed the kernel's raw pointers; the backward pulls its
     # cotangents through pack_scene again (render.py), so no graph here
     with torch.no_grad():
@@ -306,11 +358,13 @@ def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
     n_shd = 0 if shd is None else shd.shape[0]
     n_quads = 0 if quads is None else len(quads[0])
     smem = shared_bytes(n_tri, n_sph, n_shd)
-    if smem > SMEM_BUDGET_BYTES:
-        raise NotImplementedError(
+    if not streamed and smem > SMEM_BUDGET_BYTES:
+        # only a pinned whole-table kernel gets here: use_streamed sends
+        # such a scene to the streamed kernel
+        raise ValueError(
             f"scene tables need {smem} B of shared memory, above the "
-            f"{SMEM_BUDGET_BYTES} B a block may use; the streamed kernel "
-            f"is not ported yet")
+            f"{SMEM_BUDGET_BYTES} B a block of the whole-table kernel may "
+            f"use")
     _check("tri", tri, (n_tri, TRI_COLS))
     _check("sph", sph, (max(scene.num_spheres, 1), SPH_COLS))
     _check("cam", cam, (CAM_COLS,))
@@ -331,7 +385,7 @@ def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
                                   dtype=torch.int32, device=dev))
     ints, floats = launch_params(cfg, row0, rows, n_tri, n_sph, n_quads,
                                  n_shd)
-    launch = _declare(_build.load())
+    launch = _declare(_build.load(), streamed)
     with torch.cuda.device(dev):
         err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
                      0 if shd is None else shd.data_ptr(), img.data_ptr(),
@@ -343,5 +397,8 @@ def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
     if err != 0:
         raise RuntimeError(f"render_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    if streamed:
+        STREAMED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return img, packed, res

@@ -5,9 +5,9 @@ through the renderer.
 The counterpart of ``uob_raytracer_tpu/parallel/train.py``. The JAX
 signatures take a device ``Mesh``; here ``mesh=None`` means the one device
 the scene lives on, and anything else raises until the sharded renderer is
-ported. On a CUDA scene every step is one launch of the fused forward
-kernel (with its decision record) and one of the path-replay backward
-kernel.
+ported. On a CUDA scene every step is one launch of a fused forward
+kernel (with its decision record) and one of a path-replay backward
+kernel, followed on a large scene by its segmented sum.
 """
 from __future__ import annotations
 

@@ -10,7 +10,9 @@ same frame:
   (``kernels/render_bwd.py``), one launch that turns the image cotangent
   into the packed tables' cotangents, pulled back onto the Scene leaves
   through ``pack_scene``. The two are tied together by a
-  ``torch.autograd.Function``;
+  ``torch.autograd.Function``. Each is a pair of kernels, whole-table for
+  small scenes and streamed for any triangle count; the wrappers choose
+  from the scene's size (``kernels/render_fwd.py:use_streamed``);
 - ``'torch'``: the plain torch pipeline (``render_flat`` and the AA mean),
   differentiated by plain autograd: the kernels' semantic twin and their
   reference in the tests.

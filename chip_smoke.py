@@ -35,7 +35,23 @@ one library) and then, every phase raising on failure and none caught:
 7. times, per baseline config and on the large scene, ``render()``, the
    forward wrapper with and without the record, the backward wrapper,
    ``train_step`` and the plain versions (CUDA events; each kernel's device
-   time from torch.profiler).
+   time from torch.profiler);
+8. the sharded path, at 8,192 triangles, 128x128, 2x2 AA, 3 samples, 2
+   bounces (the JAX package's ``bench.py:bench_tp`` frame): holds the
+   per-shard partial-scan kernels (nearest hit, occlusion) against their
+   plain versions on the ray batches that frame gives them, and on a
+   600-triangle shard, the nearest-hit ids against the streamed forward
+   kernel's record, and the nearest hit's replay backward against
+   autograd through the plain version (two runs bit-equal); drives the
+   frame on one process (``shade`` with the kernel route and no sharded
+   axis: three launches of each kernel), forward and forward+backward,
+   against the plain pipeline and the streamed forward kernel's frame;
+   then spawns two ranks that share the card (gloo between them: NCCL
+   refuses two ranks on one device), ``tp=2`` (4,096 triangles a rank)
+   and ``dp=2`` (64 rows a rank, the fused kernels), each through
+   ``render_image_sharded`` and five ``train_step``s, and holds rank 0's
+   image and gradients to the single-process ones and the ranks' trained
+   scenes to each other.
 
 The line before the last lists each kernel with its launches on its main
 path, its worst deviation from the plain version at full width, its times
@@ -49,7 +65,8 @@ kernel's function, so their ``library_ms`` is null; the segmented sum's is
 device.
 
 Imports neither jax nor the JAX package. Runs on one CUDA card: the first
-of those CUDA_VISIBLE_DEVICES lists, or device 0. Exits non-zero without
+of those CUDA_VISIBLE_DEVICES lists, or device 0. Every rank it spawns is
+joined with a time limit and killed if another fails. Exits non-zero without
 printing a result where there is none.
 """
 from __future__ import annotations
@@ -72,11 +89,13 @@ import torch  # noqa: E402
 
 import uob_raytracer_tpu_torch as rt  # noqa: E402
 from uob_raytracer_tpu_torch import RenderConfig, ShadingModel, baseline_configs  # noqa: E402
-from uob_raytracer_tpu_torch.kernels import _build, render_bwd, render_fwd  # noqa: E402
+from uob_raytracer_tpu_torch.kernels import (  # noqa: E402
+    _build, partial, render_bwd, render_fwd)
 from uob_raytracer_tpu_torch.ops.image import pack_argb, save_bmp  # noqa: E402
 from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads  # noqa: E402
 from uob_raytracer_tpu_torch.ops.replay import Residuals  # noqa: E402
-from uob_raytracer_tpu_torch.parallel import train_step  # noqa: E402
+from uob_raytracer_tpu_torch.parallel import (  # noqa: E402
+    make_mesh, multihost, render_image_sharded, train_step)
 from uob_raytracer_tpu_torch.scene import Scene  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -99,6 +118,11 @@ GRAD_TOL, GRAD_TOL_GLASS = 1e-4, 1e-3
 # H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 LEAVES = tuple(f.name for f in dataclasses.fields(Scene))
+# the sharded path's frame (the JAX package's bench.py:streamed_bench_cfg)
+CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
+                       shadow_samples=3, bounces=2)
+GRAD_LEAVES = ("light_pos", "light_color", "tri_v0", "tri_v1", "tri_v2",
+               "tri_rgb", "camera_pos", "yaw", "pitch")
 
 
 def images_match(img, ref, what: str) -> tuple[float, float]:
@@ -292,19 +316,20 @@ def time_frames(fn, warmup: int, n: int) -> list[float]:
     return out
 
 
-def kernel_device_ms(fn, kernel: str, n: int = 10) -> float:
-    """Mean device time of one launch of ``kernel`` over n calls of fn,
-    from torch.profiler (a wrapper's time also holds its host-side work).
-    The tracer may drop the records of some launches: the mean is over the
-    launches it kept, at least half of them, in at most three sessions. It
-    never keeps more than were made."""
+def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
+    """Mean device time of one launch of ``kernel`` over n calls of fn
+    (``per_call`` launches each), from torch.profiler (a wrapper's time
+    also holds its host-side work). The tracer may drop the records of some
+    launches: the mean is over the launches it kept, at least half of them,
+    in at most three profiler runs. It never keeps more than were made."""
+    calls, n = n, n * per_call
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     seen = []
     for _ in range(3):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         rows = [k for k in prof.key_averages() if kernel in k.key]
@@ -312,14 +337,14 @@ def kernel_device_ms(fn, kernel: str, n: int = 10) -> float:
         seen.append(count)
         if count > n:
             raise AssertionError(f"profiler saw {count} {kernel} launches "
-                                 f"in {n} calls")
+                                 f"where {n} were made")
         if 2 * count >= n:
             if count != n:
                 print(f"profiler kept {count} of {n} {kernel} launches",
                       flush=True)
             return sum(k.self_device_time_total for k in rows) / count / 1000.0
     raise AssertionError(f"profiler kept {seen} of {n} {kernel} launches "
-                         f"in three sessions")
+                         f"in three profiler runs")
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +424,12 @@ def reset_counts() -> None:
     render_fwd.LAUNCHES = render_fwd.STREAMED_LAUNCHES = 0
     render_bwd.LAUNCHES = render_bwd.STREAMED_LAUNCHES = 0
     render_bwd.SEGMENT_SUM_LAUNCHES = 0
+    partial.NEAREST_LAUNCHES = partial.OCCLUDED_LAUNCHES = 0
+
+
+def partial_counts() -> tuple[int, int]:
+    """Launches since the last reset: nearest-hit scan, occlusion scan."""
+    return partial.NEAREST_LAUNCHES, partial.OCCLUDED_LAUNCHES
 
 
 def counts() -> tuple[int, int, int, int, int]:
@@ -407,6 +438,232 @@ def counts() -> tuple[int, int, int, int, int]:
     return (render_fwd.LAUNCHES, render_fwd.STREAMED_LAUNCHES,
             render_bwd.LAUNCHES, render_bwd.STREAMED_LAUNCHES,
             render_bwd.SEGMENT_SUM_LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# The sharded path: the wavefront pipeline with its triangle scans in the
+# partial-scan kernels, on one process and across ranks
+# ---------------------------------------------------------------------------
+
+def partial_frame(scene, cfg):
+    """The frame through ``shade`` with the kernel route and no sharded axis
+    (the tp pipeline on one process): the AA mean of ``render_flat``."""
+    colors = render_fwd.render_flat(scene, cfg, tri_pass="kernel")
+    return colors.sum(dim=2) / float(colors.shape[2])
+
+
+def loss_and_grads(render_fn, scene, target):
+    """(loss, {leaf: gradient}) of the MSE of ``render_fn(scene)`` against
+    ``target`` on the nine trainable leaves."""
+    leaves = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+              for k in GRAD_LEAVES}
+    img = render_fn(dataclasses.replace(scene, **leaves))
+    loss = torch.mean(torch.square(img - target))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(GRAD_LEAVES, grads))
+
+
+def leaf_errors(ref: dict, got: dict) -> tuple[float, str]:
+    """(worst leaf-wise relative error, its leaf) of two gradient dicts."""
+    rel, leaf = 0.0, ""
+    for k, a in ref.items():
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"gradient of {k} is not finite")
+        r = ((a - got[k]).abs().max().item()
+             / max(a.abs().max().item(), 1.0))
+        if r >= rel:
+            rel, leaf = r, k
+    return rel, leaf
+
+
+def recorded_frame(scene, cfg):
+    """``partial_frame`` with every call of the two wrappers recorded: the
+    image and the argument tuples, in call order, of ``nearest_tris`` (the
+    primary batch, then one batch per bounce step) and ``occluded_tris``
+    (one batch per shadow sample)."""
+    calls = {"nearest": [], "occluded": []}
+    real = partial.nearest_tris, partial.occluded_tris
+
+    def keep(name, fn):
+        def wrapper(*args):
+            calls[name].append(tuple(a.detach() for a in args))
+            return fn(*args)
+        return wrapper
+
+    partial.nearest_tris = keep("nearest", real[0])
+    partial.occluded_tris = keep("occluded", real[1])
+    try:
+        with torch.no_grad():
+            img = partial_frame(scene, cfg)
+    finally:
+        partial.nearest_tris, partial.occluded_tris = real
+    torch.cuda.synchronize()
+    return img, calls
+
+
+def check_partial(what: str, calls):
+    """Both partial-scan kernels against their plain versions on recorded
+    batches. Winner ids and occlusion bits may differ on at most 0.5% of
+    rays (rays on a triangle's edge, or with two hits at one t); where the
+    ids agree, t and pos within the image budget's 3e-4 and the gathered
+    attributes equal. Returns (worst |t|/|pos| error, worst fraction of
+    differing ids, of differing bits, the occlusion outputs)."""
+    worst, frac_id, frac_occ, bits = 0.0, 0.0, 0.0, []
+    for i, args in enumerate(calls["nearest"]):
+        out = partial.nearest_tris(*args)
+        torch.cuda.synchronize()
+        ref = partial.nearest_tris_plain(*args)
+        same = out[5] == ref[5]
+        frac_id = max(frac_id, 1.0 - same.float().mean().item())
+        hit = same & (ref[5] >= 0)
+        err = max((out[0][hit] - ref[0][hit]).abs().max().item(),
+                  (out[1][same] - ref[1][same]).abs().max().item())
+        worst = max(worst, err)
+        if not all(torch.equal(a[same], b[same])
+                   for a, b in zip(out[2:5], ref[2:5])):
+            raise AssertionError(f"{what}: nearest batch {i}: gathered "
+                                 f"attributes differ where the ids agree")
+        if not torch.isinf(out[0][out[5] < 0]).all() or (out[5] < -1).any():
+            raise AssertionError(f"{what}: nearest batch {i}: a miss is not "
+                                 f"t = inf, id -1")
+    for i, args in enumerate(calls["occluded"]):
+        out = partial.occluded_tris(*args)
+        torch.cuda.synchronize()
+        ref = partial.occluded_tris_plain(*args)
+        frac_occ = max(frac_occ, (out != ref).float().mean().item())
+        bits.append(out)
+    if max(frac_id, frac_occ) > OUTLIER_FRAC or worst > TIGHT:
+        raise AssertionError(
+            f"{what}: ids differ on {frac_id:.3%}, bits on {frac_occ:.3%} of "
+            f"rays (budget {OUTLIER_FRAC:.1%}); worst t/pos error "
+            f"{worst:.3g} (budget {TIGHT})")
+    rays = [a[6].shape[0] for a in calls["nearest"]]
+    print(f"partial scans {what}: {len(calls['nearest'])} nearest-hit and "
+          f"{len(calls['occluded'])} occlusion batches of {rays[0]} rays x "
+          f"{calls['nearest'][0][0].shape[0]} triangles vs plain: ids differ "
+          f"on {frac_id:.4%}, bits on {frac_occ:.4%} of rays, worst t/pos "
+          f"error {worst:.3g}", flush=True)
+    return worst, frac_id, frac_occ, bits
+
+
+def nearest_work(n_tri: int, n_rays: int):
+    """(bytes, operations) of one nearest-hit launch: the 76 B rows and the
+    rays' 24 B read once, 52 B written per ray; per ray and row the general
+    Cramer test (about 70 operations), per ray the winner's position."""
+    return 76 * n_tri + 76 * n_rays, n_rays * (70 * n_tri + 20)
+
+
+def occluded_work(n_tri: int, bits):
+    """(bytes, operations) of one occlusion launch on these rays: a ray
+    that is lit needs every row (about 55 operations each), an occluded one
+    the row that occludes it."""
+    n, dark = bits.numel(), int(bits.sum())
+    return (52 * n_tri + 29 * n,
+            (n - dark) * 55 * n_tri + dark * 55 + 10 * n)
+
+
+def rank_main(rank: int, workdir: str, dp: int, tp: int) -> None:
+    """What one spawned rank runs: the frame and five training steps on
+    the (dp, tp) mesh, at full width, on the card it shares with the other
+    ranks. Writes what it computed to ``rank<r>.pt`` in ``workdir``."""
+    mesh = make_mesh(dp=dp, tp=tp)
+    scene = dense_scene(8192)
+    target = torch.load(os.path.join(workdir, "target.pt")).to(mesh.device)
+    _build.load()
+
+    def frame(sc=scene):
+        return render_image_sharded(sc, CFG_BIG, mesh)
+
+    def clock(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.no_grad():
+        frame()                                   # warm-up
+        reset_counts()
+        img = frame()
+        torch.cuda.synchronize()
+        frame_counts = counts() + partial_counts()
+        frame_ms = clock(frame, 5)
+    loss, grads = loss_and_grads(frame, scene, target)
+    reset_counts()
+    state = {"live": scene, "losses": []}
+
+    def step():
+        out = train_step(state["live"], target, CFG_BIG, mesh, lr=2.0,
+                         trainable=("light_pos", "tri_rgb"))
+        state["live"] = out.scene
+        state["losses"].append(out.loss.item())
+
+    step_ms = clock(step, 5)
+    live = state["live"]
+    torch.save({
+        "image": img.cpu(), "loss": loss.cpu(),
+        "grads": {k: g.cpu() for k, g in grads.items()},
+        "frame_counts": frame_counts,
+        "step_counts": counts() + partial_counts(),
+        "losses": state["losses"], "frame_ms": frame_ms, "step_ms": step_ms,
+        "light_pos": live.light_pos.cpu(), "tri_rgb": live.tri_rgb.cpu(),
+    }, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def run_ranks(workdir: str, name: str, dp: int, tp: int) -> list[dict]:
+    """Two ranks on the (dp, tp) mesh, sharing the card; what each wrote."""
+    n = dp * tp
+    multihost.spawn_ranks(rank_main, n, f"file://{workdir}/store_{name}",
+                          (workdir, dp, tp), timeout_s=300)
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"))
+            for r in range(n)]
+
+
+def same_counts(got, want) -> bool:
+    """Launch counts equal wherever ``want`` names one (None: any)."""
+    return all(w is None or g == w for g, w in zip(got, want))
+
+
+def check_ranks(what, outs, ref_img, ref_loss, ref_grads, frame_counts,
+                step_counts):
+    """Rank 0's image and gradients against the single-process ones, the
+    ranks against each other, the launch counts, a falling loss. Returns
+    (worst pixel deviation, whether the image is bit-equal, worst gradient
+    error)."""
+    dev = ref_img.device
+    img = outs[0]["image"].to(dev)
+    worst, _ = images_match(img, ref_img, what)
+    rel, leaf = leaf_errors(ref_grads, {k: g.to(dev) for k, g in
+                                        outs[0]["grads"].items()})
+    if rel > GRAD_TOL_GLASS:
+        raise AssertionError(f"{what}: gradient of {leaf} off the "
+                             f"single-process one by {rel:.3g} relative "
+                             f"(budget {GRAD_TOL_GLASS})")
+    if abs(outs[0]["loss"].item() - ref_loss.item()) > 1e-5 * ref_loss.item():
+        raise AssertionError(f"{what}: loss {outs[0]['loss'].item()} vs "
+                             f"{ref_loss.item()} on one process")
+    for r, o in enumerate(outs):
+        if not torch.equal(o["image"], outs[0]["image"]):
+            raise AssertionError(f"{what}: rank {r} returned another image")
+        for k in ("light_pos", "tri_rgb"):
+            if not torch.equal(o[k], outs[0][k]):
+                raise AssertionError(f"{what}: rank {r} trained another {k}")
+            if not torch.isfinite(o[k]).all():
+                raise AssertionError(f"{what}: rank {r}: {k} is not finite")
+        if not (same_counts(o["frame_counts"], frame_counts)
+                and same_counts(o["step_counts"], step_counts)):
+            raise AssertionError(
+                f"{what}: rank {r} launched {o['frame_counts']} for a frame "
+                f"and {o['step_counts']} in five steps (whole fwd, streamed "
+                f"fwd, whole bwd, streamed bwd, segmented sum, nearest hit, "
+                f"occlusion); expected {frame_counts} and {step_counts}")
+    losses = outs[0]["losses"]
+    if not losses[4] < losses[0]:
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+    return worst, torch.equal(img, ref_img), rel
 
 
 def main() -> None:
@@ -682,8 +939,7 @@ def main() -> None:
     # 7c. 8,192 triangles at the JAX package's large-scene size
     big = dense_scene(8192)
     q_big = detect_shadow_quads(big)
-    cfg_big = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
-                           shadow_samples=3, bounces=2)
+    cfg_big = CFG_BIG
     if not render_fwd.use_streamed(big.num_triangles, big.num_spheres):
         raise AssertionError("an 8,192-triangle scene must route to the "
                              "streamed kernels")
@@ -1012,6 +1268,199 @@ def main() -> None:
           f"{k2p['streamed_bound'][0]:.4f} ms by {k2p['streamed_bound'][1]}; "
           f"plain {k2p['plain']:.2f} ms", flush=True)
 
+    # --- 10. the sharded path: the partial-scan kernels (nearest hit,
+    # occlusion), the frame through them on one process, and two ranks
+    # sharing the card ---
+    # 10a. the kernels against their plain versions on the batches the
+    # full-width frame gives them, and on a 600-triangle shard
+    img_p, calls = recorded_frame(big, CFG_BIG)
+    if (len(calls["nearest"]), len(calls["occluded"])) != (3, 3):
+        raise AssertionError("the frame made "
+                             f"{len(calls['nearest'])} nearest-hit and "
+                             f"{len(calls['occluded'])} occlusion calls")
+    k4_err, k4_frac, k5_frac, bits_big = check_partial(
+        "8192 triangles 128x128 aa4 s3 b2", calls)
+    _, calls600 = recorded_frame(d600, mid)
+    check_partial("600 triangles 128x16 aa4 s3 b2", calls600)
+    # the primary batch's winners against the streamed forward kernel's
+    # record of the same frame (its shared-origin primary test rounds
+    # differently from the general test; a sphere in front wins there)
+    pid = res_big_t.prim_id                               # [A, H, W]
+    idx_prim = partial.nearest_tris(*calls["nearest"][0])[5].reshape(
+        CFG_BIG.height, CFG_BIG.width, CFG_BIG.aa_rays).permute(2, 0, 1)
+    tri_won = pid < big.num_triangles                     # a triangle or a miss
+    pid_frac = (idx_prim[tri_won] != pid[tri_won]).float().mean().item()
+    if pid_frac > OUTLIER_FRAC:
+        raise AssertionError(f"nearest-hit ids differ from the streamed "
+                             f"forward kernel's record on {pid_frac:.3%} of "
+                             f"primary rays (budget {OUTLIER_FRAC:.1%})")
+    print(f"nearest-hit ids of the primary batch vs the streamed forward "
+          f"kernel's record: differ on {pid_frac:.4%} of the "
+          f"{int(tri_won.sum())} rays no sphere wins", flush=True)
+
+    # 10b. the nearest hit's replay backward against autograd through the
+    # plain version (4,096 rays of the first bounce batch: the plain
+    # version keeps every [rays, triangles] intermediate for its backward),
+    # and two runs on the whole batch bit-equal
+    def nearest_grads(fn, args, n_rays, seed):
+        ins = [a[:n_rays].clone().requires_grad_(True) if i >= 6
+               else a.clone().requires_grad_(True) for i, a in enumerate(args)]
+        out = fn(*ins)
+        cts = [seeded_cotangent(o.shape, seed + j) for j, o in
+               enumerate(out[:4])]
+        t_hit = torch.where(out[5] >= 0, out[0], 0.0)     # t is inf on a miss
+        loss = sum((o * c).sum() for o, c in zip((t_hit, *out[1:4]), cts))
+        names = ("v0", "e1", "e2", "n", "rgb", "start", "d")
+        return dict(zip(names, torch.autograd.grad(
+            loss, [x for i, x in enumerate(ins) if i != 5])))
+
+    bounce = calls["nearest"][1]
+    k4_bwd_rel, leaf = leaf_errors(
+        nearest_grads(partial.nearest_tris_plain, bounce, 4096, 71),
+        nearest_grads(partial.nearest_tris, bounce, 4096, 71))
+    if k4_bwd_rel > GRAD_TOL:
+        raise AssertionError(f"nearest-hit backward: {leaf} off the plain "
+                             f"version's by {k4_bwd_rel:.3g} (budget "
+                             f"{GRAD_TOL})")
+    n_all = bounce[6].shape[0]
+    one = nearest_grads(partial.nearest_tris, bounce, n_all, 72)
+    two = nearest_grads(partial.nearest_tris, bounce, n_all, 72)
+    torch.cuda.synchronize()
+    for k in one:
+        if not torch.equal(one[k], two[k]):
+            raise AssertionError(f"two nearest-hit backward runs differ in {k}")
+    print(f"nearest-hit backward vs autograd through the plain version "
+          f"(4096 rays x 8192 triangles): worst {leaf} {k4_bwd_rel:.3g} "
+          f"relative (budget {GRAD_TOL}); two runs on {n_all} rays bit-equal "
+          f"(the row sum is the segmented sum, no atomics)", flush=True)
+
+    # 10c. main path five: the frame on one process, shade with the kernel
+    # route and no sharded axis (the JAX package's bench_tp), forward and
+    # forward+backward
+    reset_counts()
+    with torch.no_grad():
+        img_one = partial_frame(big, CFG_BIG)
+    torch.cuda.synchronize()
+    k4_launches, k5_launches = partial_counts()
+    if (k4_launches, k5_launches) != (1 + CFG_BIG.bounces,
+                                      CFG_BIG.shadow_samples) or any(counts()):
+        raise AssertionError(f"one-process frame: {partial_counts()} "
+                             f"nearest-hit and occlusion launches, {counts()} "
+                             f"of the fused kernels")
+    if not torch.equal(img_one, img_p) or not torch.isfinite(img_one).all():
+        raise AssertionError("two runs of the one-process frame differ")
+    with torch.no_grad():
+        plain_big = render_fwd.render_fused_plain(big, CFG_BIG)[0]
+        k3f_big = rt.render_image(big, CFG_BIG)           # no quads
+    w_plain, f_plain = images_match(img_one, plain_big,
+                                    "one-process frame vs plain pipeline")
+    w_k3f, f_k3f = images_match(img_one, k3f_big, "one-process frame vs the "
+                                "streamed forward kernel's frame")
+    loss_one, grads_one = loss_and_grads(
+        lambda sc: partial_frame(sc, CFG_BIG), big, target_big)
+    loss_fused, grads_fused = loss_and_grads(
+        lambda sc: rt.render_image(sc, CFG_BIG), big, target_big)
+    rel_fused, leaf = leaf_errors(grads_fused, grads_one)
+    if rel_fused > GRAD_TOL_GLASS:
+        raise AssertionError(f"one-process frame: gradient of {leaf} off the "
+                             f"fused path's by {rel_fused:.3g} (budget "
+                             f"{GRAD_TOL_GLASS})")
+    print(f"sharded path on one process: shade(kernel route) on "
+          f"dense_scene(8192) 128x128 aa4 s3 b2 -> {tuple(img_one.shape)}, "
+          f"{k4_launches} nearest-hit and {k5_launches} occlusion launches; "
+          f"vs plain pipeline worst {w_plain:.3g}, beyond {TIGHT}: "
+          f"{f_plain:.3%}; vs the streamed forward kernel's frame worst "
+          f"{w_k3f:.3g}, beyond {TIGHT}: {f_k3f:.3%}; gradients of the nine "
+          f"leaves vs the fused path (streamed backward kernel): worst "
+          f"{leaf} {rel_fused:.3g} relative", flush=True)
+
+    # 10d. main path six: two ranks sharing this card, tp=2 through the
+    # partial-scan kernels and the combine, then dp=2 through the fused
+    # kernels on row bands; five train_steps each
+    workdir = os.path.join(ROOT, "build", "chip_smoke_ranks")
+    os.makedirs(workdir, exist_ok=True)
+    for name in os.listdir(workdir):
+        os.remove(os.path.join(workdir, name))
+    torch.save(target_big.cpu(), os.path.join(workdir, "target.pt"))
+    via = multihost.transport(2, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    tp_outs = run_ranks(workdir, "tp", dp=1, tp=2)
+    tp_s = time.perf_counter() - t0
+    tp_worst, tp_equal, tp_rel = check_ranks(
+        "tp=2", tp_outs, img_one, loss_one, grads_one,
+        (0, 0, 0, 0, 0, 3, 3), (0, 0, 0, 0, None, 15, 15))
+    t0 = time.perf_counter()
+    dp_outs = run_ranks(workdir, "dp", dp=2, tp=1)
+    dp_s = time.perf_counter() - t0
+    dp_worst, dp_equal, dp_rel = check_ranks(
+        "dp=2", dp_outs, k3f_big, loss_fused, grads_fused,
+        (0, 1, 0, 0, 0, 0, 0), (0, 5, 0, 5, 5, 0, 0))
+    ranks = {}
+    for name, outs, worst, equal, rel, secs in (
+            ("tp=2", tp_outs, tp_worst, tp_equal, tp_rel, tp_s),
+            ("dp=2", dp_outs, dp_worst, dp_equal, dp_rel, dp_s)):
+        o = outs[0]
+        ranks[name] = {"frame_ms": statistics.median(o["frame_ms"]),
+                       "step_ms": statistics.median(o["step_ms"][1:])}
+        print(f"sharded path across ranks [{card}]: {name}, two processes "
+              f"sharing the one card, {via} between them (staged through "
+              f"the host): rank 0's image vs the single-process frame worst "
+              f"{worst:.3g}{' (bit-equal)' if equal else ''}, gradients "
+              f"worst {rel:.3g} relative; launches per frame "
+              f"{o['frame_counts']}, in five steps {o['step_counts']} (whole "
+              f"fwd, streamed fwd, whole bwd, streamed bwd, segmented sum, "
+              f"nearest hit, occlusion); loss {o['losses'][0]:.6g} -> "
+              f"{o['losses'][4]:.6g}, both ranks' light_pos and tri_rgb "
+              f"equal; frame {ranks[name]['frame_ms']:.2f} ms, train_step "
+              f"{ranks[name]['step_ms']:.2f} ms (host clock, medians; they "
+              f"say nothing of two cards); {secs:.1f} s with the spawn",
+              flush=True)
+
+    # 10e. timing the partial scans and the one-process frame
+    def one_fwd():
+        with torch.no_grad():
+            return partial_frame(big, CFG_BIG)
+
+    def one_fwd_bwd():
+        return loss_and_grads(lambda sc: partial_frame(sc, CFG_BIG), big,
+                              target_big)
+
+    prim, shadow = calls["nearest"][0], calls["occluded"][0]
+    n_rays = prim[6].shape[0]
+    pt = {
+        "fwd": median_ms(one_fwd, 2, 5),
+        "fwd_bwd": median_ms(one_fwd_bwd, 1, 5),
+        "fused_fwd_bwd": median_ms(lambda: loss_and_grads(
+            lambda sc: rt.render_image(sc, CFG_BIG), big, target_big), 1, 5),
+        "k4": median_ms(lambda: partial.nearest_tris(*prim), 2, 5),
+        "k5": median_ms(lambda: partial.occluded_tris(*shadow), 2, 5),
+        "k4_plain": median_ms(lambda: partial.nearest_tris_plain(*prim), 1, 2),
+        "k5_plain": median_ms(lambda: partial.occluded_tris_plain(*shadow),
+                              1, 2),
+        "k4_dev": kernel_device_ms(one_fwd, "nearest_tris_kernel", n=4,
+                                   per_call=3),
+        "k5_dev": kernel_device_ms(one_fwd, "occluded_tris_kernel", n=4,
+                                   per_call=3),
+    }
+    pt["k4_bound"] = bound(*nearest_work(big.num_triangles, n_rays))
+    k5_works = [occluded_work(big.num_triangles, b) for b in bits_big]
+    pt["k5_bound"] = bound(sum(w[0] for w in k5_works) / len(k5_works),
+                           sum(w[1] for w in k5_works) / len(k5_works))
+    lit_share = 1.0 - torch.stack(bits_big).float().mean().item()
+    print(f"time sharded path on one process, dense_8192 128x128 aa4 s3 b2 "
+          f"[{card}]: frame (3 nearest-hit + 3 occlusion launches and the "
+          f"torch shading between them) {pt['fwd']:.4f} ms, forward+backward "
+          f"on nine leaves {pt['fwd_bwd']:.4f} ms (the fused path's, "
+          f"streamed kernels: {pt['fused_fwd_bwd']:.4f} ms); nearest-hit "
+          f"kernel device {pt['k4_dev']:.4f} ms a launch ({n_rays} rays x "
+          f"{big.num_triangles} rows), bound {pt['k4_bound'][0]:.4f} ms by "
+          f"{pt['k4_bound'][1]}, wrapper {pt['k4']:.4f} ms, plain "
+          f"{pt['k4_plain']:.2f} ms; occlusion kernel device "
+          f"{pt['k5_dev']:.4f} ms a launch ({lit_share:.1%} of the shadow "
+          f"rays lit, which scan every row), bound {pt['k5_bound'][0]:.4f} ms "
+          f"by {pt['k5_bound'][1]}, wrapper {pt['k5']:.4f} ms, plain "
+          f"{pt['k5_plain']:.2f} ms", flush=True)
+
     full = times["full_1024"]
     src = "uob_raytracer_tpu_torch/csrc/"
     jax_fwd = "uob_raytracer_tpu/kernels/render_fwd.py"
@@ -1071,6 +1520,31 @@ def main() -> None:
               library_ms=lg["index_add"],
               at="dense_8192 128x128 aa4 s3 b2, 5 train_steps; plain version "
               "= index_add_"),
+        entry("K4 nearest_tris (per-shard nearest hit)", "partial.cu",
+              "uob_raytracer_tpu/kernels/partial.py:64", k4_launches, k4_err,
+              pt["k4"], pt["k4_plain"], pt["k4_bound"], pt["k4_dev"],
+              at="dense_8192 128x128 aa4 s3 b2, the frame on one process "
+              "(shade, kernel route); ms and plain_ms on its primary batch",
+              ids_differ_from_plain=k4_frac, backward_max_rel_err=k4_bwd_rel,
+              primary_ids_differ_from_streamed_fwd_record=pid_frac,
+              frame_ms=pt["fwd"], frame_fwd_bwd_ms=pt["fwd_bwd"],
+              launches_rank0_tp2_frame=tp_outs[0]["frame_counts"][5],
+              launches_rank0_tp2_5_train_steps=tp_outs[0]["step_counts"][5],
+              tp2_two_ranks_one_card_frame_ms=ranks["tp=2"]["frame_ms"],
+              tp2_two_ranks_one_card_train_step_ms=ranks["tp=2"]["step_ms"],
+              transport=via),
+        entry("K5 occluded_tris (per-shard occlusion)", "partial.cu",
+              "uob_raytracer_tpu/kernels/partial.py:194", k5_launches,
+              1.0 if k5_frac else 0.0,
+              pt["k5"], pt["k5_plain"], pt["k5_bound"], pt["k5_dev"],
+              at="dense_8192 128x128 aa4 s3 b2, the frame on one process "
+              "(shade, kernel route); ms and plain_ms on its first shadow "
+              "batch; max_abs_err is over bits: 1 if any differs",
+              bits_differ_from_plain=k5_frac, lit_share=lit_share,
+              launches_rank0_tp2_frame=tp_outs[0]["frame_counts"][6],
+              launches_rank0_tp2_5_train_steps=tp_outs[0]["step_counts"][6],
+              dp2_two_ranks_one_card_frame_ms=ranks["dp=2"]["frame_ms"],
+              dp2_two_ranks_one_card_train_step_ms=ranks["dp=2"]["step_ms"]),
     ]
     for k in kernels:
         if k["launches"] < 1:

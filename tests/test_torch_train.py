@@ -3,7 +3,8 @@ and the CLI's ``fit`` subcommand against the JAX package's, on the CPU.
 
 The JAX trainer runs on a one-device mesh with its 'jnp' backend (full
 autodiff); the port's runs with ``mesh=None`` through the fused path's
-plain versions (path replay). Tolerances: losses and updated leaves of
+plain versions (path replay). Meshes of several ranks are in
+``tests/test_torch_parallel.py``. Tolerances: losses and updated leaves of
 three SGD steps within 1e-4 relative; five Adam steps within 1e-3 (Adam
 divides by sqrt(v) + eps, which magnifies a gradient difference on leaves
 whose gradient is near eps).
@@ -83,7 +84,7 @@ def test_trainer_constants_and_mesh():
     for call in (lambda: tpar.image_loss(sc, target, cfg, mesh=object()),
                  lambda: tpar.train_step(sc, target, cfg, mesh="dp"),
                  lambda: tpar.fit(sc, target, cfg, mesh=(2, 1), steps=1)):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="mesh"):
             call()
     with pytest.raises(ValueError, match="not Scene leaves"):
         tpar.train_step(sc, target, cfg, trainable=("light",))

@@ -6,7 +6,8 @@
 // shading set-up, the RNG and the output pack. What differs between the
 // kernels is only where a table row comes from (shared memory staged
 // whole, or a tile of the table in device memory) and how the loops around
-// the tests are arranged.
+// the tests are arranged. The per-shard partial scans (partial.cu) take
+// the general per-row tests and the tile load from here too.
 //
 // The helpers' shapes are measured, not only chosen: on the H100 the
 // whole-table kernel ran 3.6% slower with the "casts no shadow" test as an
@@ -456,6 +457,22 @@ __device__ __forceinline__ void write_pixel(float* img, uint32_t* packed, size_t
   const uint32_t cg = (uint32_t)(int)fminf(fmaxf(255.0f * fin.y, 0.0f), 255.0f);
   const uint32_t cb = (uint32_t)(int)fminf(fmaxf(255.0f * fin.z, 0.0f), 255.0f);
   packed[p] = (255u << 24) + (cr << 16) + (cg << 8) + cb;
+}
+
+// --- streaming a table from device memory ---
+// One tile of the table at g (row stride `cols` floats, n_rows rows in
+// all), rows [row0, row0 + kThreads): thread r copies row row0 + r. The
+// caller has a barrier before (the previous tile is no longer read) and
+// after. Returns the number of rows in the tile.
+__device__ __forceinline__ int load_tile(float* tile, const float* __restrict__ g, int cols,
+                                         int n_rows, int row0) {
+  const int n = min(kThreads, n_rows - row0);
+  if ((int)threadIdx.x < n) {
+    const float* src = g + (size_t)(row0 + threadIdx.x) * cols;
+    float* dst = tile + threadIdx.x * cols;
+    for (int c = 0; c < cols; ++c) dst[c] = src[c];
+  }
+  return n;
 }
 
 }  // namespace

@@ -48,21 +48,6 @@
 
 namespace {
 
-// One tile of the table at g (row stride `cols` floats, n_rows rows in
-// all), rows [row0, row0 + kThreads): thread r copies row row0 + r. The
-// caller has a barrier before (the previous tile is no longer read) and
-// after. Returns the number of rows in the tile.
-__device__ __forceinline__ int load_tile(float* tile, const float* __restrict__ g, int cols,
-                                         int n_rows, int row0) {
-  const int n = min(kThreads, n_rows - row0);
-  if ((int)threadIdx.x < n) {
-    const float* src = g + (size_t)(row0 + threadIdx.x) * cols;
-    float* dst = tile + threadIdx.x * cols;
-    for (int c = 0; c < cols; ++c) dst[c] = src[c];
-  }
-  return n;
-}
-
 __global__ void __launch_bounds__(kThreads)
     render_fwd_streamed_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                                const float* __restrict__ g_cam, const float* __restrict__ g_shd,

@@ -228,19 +228,32 @@ def _pick_chunk_rows(cfg: RenderConfig, rows: int | None = None,
 
 
 def render_flat(scene: Scene, cfg: RenderConfig, chunk_rows: int | None = None,
-                row0: int = 0, rows: int | None = None, record: bool = False):
+                row0: int = 0, rows: int | None = None, record: bool = False,
+                tri_axis=None, tri_pass: str = "torch", tri_offset: int = 0):
     """Float radiance per AA ray, shaped [rows, W, A, 3], for the row band
     [row0, row0 + rows) of the cfg-sized image (the whole image by
     default). Chunks of ``chunk_rows`` rows run one after another. With
     ``record`` it returns (radiance, Residuals): every ray's decisions in
-    the kernel's A-major layout."""
-    ds = prepare_scene(scene)
+    the kernel's A-major layout.
+
+    tri_axis / tri_pass / tri_offset: the triangle-sharded wavefront
+    pipeline (``parallel/render.py``). ``scene`` then holds this rank's
+    slice of the triangles, whose first has the global index
+    ``tri_offset``; ``tri_axis`` is the process group the slices are
+    combined over and ``tri_pass`` the route of the triangle scans
+    (``ops/intersect.py``). With ``tri_pass='kernel'`` a band is one chunk:
+    the scans hold no [rays, triangles] intermediate."""
+    ds = prepare_scene(scene)._replace(tri_offset=tri_offset)
+    if cfg.cpu_ref and (tri_axis is not None or tri_pass != "torch"):
+        raise ValueError("cpu_ref shading scans the whole triangle table "
+                         "in torch: no tri_axis, tri_pass='torch'")
     rows = cfg.height - row0 if rows is None else rows
     dirs, gid = gen_primary_rays(cfg, scene.yaw, scene.pitch, row0, rows)
     W = cfg.width
     A = dirs.shape[2]
     if chunk_rows is None:
-        chunk_rows = _pick_chunk_rows(cfg, rows, n_tri=scene.num_triangles)
+        chunk_rows = (rows if tri_pass == "kernel" else
+                      _pick_chunk_rows(cfg, rows, n_tri=scene.num_triangles))
     if rows % chunk_rows:
         raise ValueError(
             f"chunk_rows={chunk_rows} must divide the {rows} rows rendered")
@@ -254,7 +267,8 @@ def render_flat(scene: Scene, cfg: RenderConfig, chunk_rows: int | None = None,
         if cfg.cpu_ref:
             out = shade_cpu_ref(ds, cfg, start, d_c, record)
         else:
-            out = shade(ds, cfg, start, d_c, gid_c, record)
+            out = shade(ds, cfg, start, d_c, gid_c, record, tri_axis,
+                        tri_pass)
         if record:
             out, rec = out
             records.append(rec)

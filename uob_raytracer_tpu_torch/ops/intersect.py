@@ -10,9 +10,20 @@ via the catastrophic-cancellation-stable quadratic (q/a, c/q root pairing,
 force over the triangle axis: every (ray, triangle) pair is one element of
 an [N, T] tensor.
 
+Tensor-parallel mode: when ``tri_axis`` is a process group (the mesh's tp
+group), each rank holds a slice of the triangle tensors plus its global
+index offset (``DeviceScene.tri_offset``); the local nearest hits are
+combined across ranks with a min on t, a lowest-global-index tie-break
+(matching the reference's first-triangle-wins scan order), and a masked sum
+that gathers the winning shard's hit attributes
+(``parallel/collectives.py``). Spheres are replicated on every rank, so the
+sphere merge needs no communication. ``tri_pass='kernel'`` runs the
+triangle scans through ``kernels/partial.py``: the hand-written CUDA
+kernels for tensors on the card, their plain versions for tensors on the
+CPU.
+
 Degenerate denominators are routed through guarded values; they are
 rejected by the same comparisons that reject them in the reference.
-The triangle-axis sharding of the JAX package is not part of this module.
 """
 from __future__ import annotations
 
@@ -45,6 +56,8 @@ class DeviceScene(NamedTuple):
     light_color: torch.Tensor
     indirect: torch.Tensor
     camera_pos: torch.Tensor
+    # Global index of this shard's first triangle (0 unless triangle-sharded).
+    tri_offset: int = 0
 
     @property
     def num_spheres(self) -> int:
@@ -116,8 +129,9 @@ def _sphere_roots(ds: DeviceScene, start, d):
 
 
 def _best_triangle(ds: DeviceScene, start, d):
-    """Nearest accepted triangle: (t [N] (inf if none), idx [N] (_IMAX if
-    none), pos, normal, rgb [N,3], mat [N])."""
+    """Nearest accepted triangle: (t [N] (inf if none), idx [N] int64, the
+    global triangle index (_IMAX if none), pos, normal, rgb [N,3], mat
+    [N])."""
     t, u, v, degenerate = _tri_tuv(ds, start, d)
     valid = ((t >= 0) & (u >= 0) & (v >= 0) & ((u + v) <= 1)) & ~degenerate
     t_m = torch.where(valid, t, _INF)
@@ -130,16 +144,64 @@ def _best_triangle(ds: DeviceScene, start, d):
     pos = ds.v0[li] + u_b[:, None] * ds.e1[li] + v_b[:, None] * ds.e2[li]
     h3 = hit[:, None]
     return (tb,
-            torch.where(hit, li, _IMAX),
+            torch.where(hit, li + ds.tri_offset, _IMAX),
             torch.where(h3, pos, 0.0),
             torch.where(h3, ds.n[li], 0.0),
             torch.where(h3, ds.rgb[li], 0.0),
             torch.where(hit, ds.mat[li], 1.0))
 
 
-def intersect(ds: DeviceScene, start, d) -> Hit:
-    """Nearest hit for rays (start [N,3], d [N,3])."""
-    tri_t, idx, pos, normal, rgb, mat = _best_triangle(ds, start, d)
+def _best_triangle_kernel(ds: DeviceScene, start, d):
+    """``_best_triangle`` through the per-shard nearest-hit kernel
+    (``kernels/partial.py:nearest_tris``). Differentiable by the wrapper's
+    path-replay backward (frozen visibility, like the argmin)."""
+    from ..kernels.partial import nearest_tris
+    t, pos, nrm, rgb, mat, idx = nearest_tris(
+        ds.v0, ds.e1, ds.e2, ds.n, ds.rgb, ds.mat, start, d)
+    hit = torch.isfinite(t)
+    return (t, torch.where(hit, idx.to(torch.int64) + ds.tri_offset, _IMAX),
+            pos, nrm, rgb, torch.where(hit, mat, 1.0))
+
+
+def _combine_tri_best(best, tri_axis):
+    """Cross-shard nearest-hit reduction: min t, ties to the lowest global
+    triangle index (the reference's scan order), attributes gathered from
+    the winning shard by one masked sum of a [N,10] tensor.
+
+    t goes through the min detached: downstream it only feeds comparisons
+    (zero gradient); the differentiable hit attributes travel through the
+    sum, whose backward is a sum again. ``best.t == t_g`` compares floats
+    across ranks: every rank computes t with the same arithmetic, in the
+    same order."""
+    from ..parallel.collectives import pmin, psum
+    t, idx, pos, normal, rgb, mat = best
+    t_g = pmin(t.detach(), tri_axis)
+    at_min = t == t_g
+    idx_g = pmin(torch.where(at_min, idx, _IMAX), tri_axis)
+    win = at_min & (idx == idx_g) & (idx != _IMAX)
+    attrs = psum(torch.where(
+        win[:, None], torch.cat([pos, normal, rgb, mat[:, None]], dim=1), 0.0),
+        tri_axis)
+    return (t_g, idx_g, attrs[:, 0:3], attrs[:, 3:6], attrs[:, 6:9],
+            torch.where(torch.isfinite(t_g), attrs[:, 9], 1.0))
+
+
+def intersect(ds: DeviceScene, start, d, tri_axis=None,
+              tri_pass: str = "torch") -> Hit:
+    """Nearest hit for rays (start [N,3], d [N,3]).
+
+    tri_pass: 'torch' scans the triangles as an [N, T] tensor; 'kernel'
+    runs the scan through ``kernels/partial.py:nearest_tris``. tri_axis:
+    the process group the triangles are sharded over, or None."""
+    if tri_pass == "kernel":
+        best = _best_triangle_kernel(ds, start, d)
+    elif tri_pass == "torch":
+        best = _best_triangle(ds, start, d)
+    else:
+        raise ValueError(f"unknown tri_pass {tri_pass!r}: 'torch' or 'kernel'")
+    if tri_axis is not None:
+        best = _combine_tri_best(best, tri_axis)
+    tri_t, idx, pos, normal, rgb, mat = best
     t_best, obj = tri_t, idx
     sph_id = torch.full_like(idx, -1)
 
@@ -178,15 +240,32 @@ def replay_id(ds: DeviceScene, hit: Hit) -> torch.Tensor:
                        hit.obj_id).to(torch.int32)
 
 
-def in_shadow(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:
-    """Occlusion toward the light (``kernels.cl:243-311``): glass (mat == -1)
-    casts no shadow; an occluder counts at t >= 0 with |t*d|^2 < radius_sq."""
+def tris_occlude(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:
+    """The triangle half of ``in_shadow``: does any triangle of ``ds`` that
+    casts a shadow lie on the ray before the light? [N] bool."""
     t, u, v, degenerate = _tri_tuv(ds, start, d)
     dist = t * t * dot3(d, d)[:, None]
     occ = ((t >= 0) & (dist < radius_sq[:, None])
            & (u >= 0) & (v >= 0) & ((u + v) <= 1) & ~degenerate
            & (ds.mat[None] != -1.0))
-    occluded = torch.any(occ, dim=1)
+    return torch.any(occ, dim=1)
+
+
+def in_shadow(ds: DeviceScene, start, d, radius_sq, tri_axis=None,
+              tri_pass: str = "torch") -> torch.Tensor:
+    """Occlusion toward the light (``kernels.cl:243-311``): glass (mat == -1)
+    casts no shadow; an occluder counts at t >= 0 with |t*d|^2 < radius_sq.
+    tri_pass='kernel': the triangle scan through
+    ``kernels/partial.py:occluded_tris``. With ``tri_axis`` the bit is the
+    max over the ranks of that process group."""
+    if tri_pass == "kernel":
+        from ..kernels.partial import occluded_tris
+        occluded = occluded_tris(ds.v0, ds.e1, ds.e2, ds.mat, start, d,
+                                 radius_sq)
+    elif tri_pass == "torch":
+        occluded = tris_occlude(ds, start, d, radius_sq)
+    else:
+        raise ValueError(f"unknown tri_pass {tri_pass!r}: 'torch' or 'kernel'")
     if ds.num_spheres:
         xmin, xmax, no_sol = _sphere_roots(ds, start, d)
         dd = dot3(d, d)[:, None]
@@ -195,4 +274,7 @@ def in_shadow(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:
                  & (((xmin >= 0) & (xmin * xmin * dd < rs))
                     | ((xmax >= 0) & (xmax * xmax * dd < rs))))
         occluded = occluded | torch.any(occ_s, dim=1)
+    if tri_axis is not None:
+        from ..parallel.collectives import pmax
+        occluded = pmax(occluded.to(torch.int32), tri_axis) > 0
     return occluded

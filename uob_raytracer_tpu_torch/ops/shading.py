@@ -26,7 +26,8 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid):
+def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid,
+                 tri_axis=None, tri_pass: str = "torch"):
     """Soft-shadowed inverse-square Lambert (``kernels.cl:313-340``).
 
     Reference quirks kept verbatim: the per-sample jitter perturbs only the
@@ -49,7 +50,8 @@ def direct_light(ds: DeviceScene, cfg: RenderConfig, pos, normal, gid):
     for _ in range(cfg.shadow_samples):
         state = xorshift(state)
         jitter = crush(state, cfg.light_spread)
-        lit = (~in_shadow(ds, start, sdir + jitter, radius_sq)).to(torch.float32)
+        lit = (~in_shadow(ds, start, sdir + jitter, radius_sq, tri_axis,
+                          tri_pass)).to(torch.float32)
         total = total + lit[:, None] * lamb
         count = count + lit
     return total / float(cfg.shadow_samples), count
@@ -87,7 +89,8 @@ def _schlick(c1, n1, n2):
     return r0 + (1 - r0) * (x * (x2 * x2))
 
 
-def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d):
+def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
+                   tri_axis=None, tri_pass: str = "torch"):
     """Wavefront specular bounce loop (``kernels.cl:342-365``) — geometry
     only. A ray stays active while its last hit is specular (mat <= 0); the
     loop records the *terminal* diffuse hit (position, normal, color,
@@ -138,7 +141,7 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d):
             w_step = torch.where(use_refl, 1.0, 1.0 - _schlick(c1a, n1v, n2v))
             weight = torch.where(alive, weight * w_step, weight)
 
-        hit = intersect(ds, new_start, new_dir)
+        hit = intersect(ds, new_start, new_dir, tri_axis, tri_pass)
         diffuse = alive & hit.hit & (hit.mat > 0)
         keep_t = diffuse[:, None]
         cont = alive & hit.hit & (hit.mat <= 0)
@@ -161,7 +164,7 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d):
 
 
 def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid,
-          record: bool = False):
+          record: bool = False, tri_axis=None, tri_pass: str = "torch"):
     """Full per-ray radiance (``kernels.cl:411-425``): nearest hit, bounce
     loop for specular rays, then ONE soft-shadow evaluation at the unified
     shading point (the primary hit for diffuse rays, the bounce-terminal
@@ -172,12 +175,18 @@ def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid,
     With ``record`` it returns (color, (pid [N] int32, lit [N] float32,
     bid [bounces, N] int32)): the ray's decisions, as the fused kernel
     records them for the path-replay backward. ``lit`` is 0 on a ray that
-    shades nothing."""
-    primary = intersect(ds, start, d)
+    shades nothing. The record is a single-device feature.
+
+    tri_axis / tri_pass: the process group the triangles are sharded over
+    and the route of the triangle scans (``ops/intersect.py``)."""
+    if record and tri_axis is not None:
+        raise ValueError("shade: the decision record is kept on a single "
+                         "device only (record=True with tri_axis)")
+    primary = intersect(ds, start, d, tri_axis, tri_pass)
     prim_diffuse = primary.hit & (primary.mat > 0)
 
     if cfg.bounces > 0:
-        term = trace_specular(ds, cfg, primary, d)
+        term = trace_specular(ds, cfg, primary, d, tri_axis, tri_pass)
         sp_pos = torch.where(prim_diffuse[:, None], primary.pos, term["term_pos"])
         sp_normal = torch.where(prim_diffuse[:, None], primary.normal,
                                 term["term_normal"])
@@ -185,7 +194,8 @@ def shade(ds: DeviceScene, cfg: RenderConfig, start, d, gid,
         term = None
         sp_pos, sp_normal = primary.pos, primary.normal
 
-    dl, lit = direct_light(ds, cfg, sp_pos, sp_normal, gid)
+    dl, lit = direct_light(ds, cfg, sp_pos, sp_normal, gid, tri_axis,
+                           tri_pass)
     color = torch.where(prim_diffuse[:, None],
                         primary.rgb * (ds.indirect[None] + dl), 0.0)
     shades = prim_diffuse

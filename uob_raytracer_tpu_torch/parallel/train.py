@@ -2,10 +2,14 @@
 (vertices, materials, light, camera) to a target image by gradient descent
 through the renderer.
 
-The counterpart of ``uob_raytracer_tpu/parallel/train.py``. The JAX
-signatures take a device ``Mesh``; here ``mesh=None`` means the one device
-the scene lives on, and anything else raises until the sharded renderer is
-ported. On a CUDA scene every step is one launch of a fused forward
+The counterpart of ``uob_raytracer_tpu/parallel/train.py``. Every entry
+point takes a ``Mesh`` (``parallel/mesh.py``) and renders through
+``render_image_sharded``: pixel rows sharded over the ranks of 'dp',
+triangles over those of 'tp', the scene replicated, and the leaves'
+gradients summed over the ranks by one all-reduce
+(``parallel/collectives.py``), so that every rank takes the same step.
+``mesh=None`` is the one device the scene lives on. There, and on every
+rank of a dp mesh, a step on a CUDA scene is one launch of a fused forward
 kernel (with its decision record) and one of a path-replay backward
 kernel, followed on a large scene by its segmented sum.
 """
@@ -17,8 +21,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import RenderConfig
-from ..render import render_image
 from ..scene import Scene
+from .render import render_image_sharded
 
 # Scene leaves that may receive gradient updates in the demo optimizer.
 # (Vertices, materials, light and camera — the BASELINE config-5 parameter
@@ -28,24 +32,19 @@ TRAINABLE = ("tri_v0", "tri_v1", "tri_v2", "tri_rgb", "light_pos",
              "light_color", "camera_pos", "yaw", "pitch")
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "only mesh=None (the scene's own device) is supported: the "
-            "dp/tp-sharded renderer is not ported yet")
-
-
 def image_loss(scene: Scene, target: torch.Tensor, cfg: RenderConfig,
                mesh=None, backend: str = "auto",
                shadow_quads=None) -> torch.Tensor:
-    """MSE against a target image through the renderer.
+    """MSE against a target image through the sharded renderer.
 
     shadow_quads: static quad pairing for the kernel's occlusion scan.
     Training paths that move vertices must NOT pass a pairing detected on
-    the pre-update geometry — light/material-only fits may pass one
-    safely. ``train_step`` and ``fit`` pass none."""
-    _one_device(mesh)
-    img = render_image(scene, cfg, backend=backend, shadow_quads=shadow_quads)
+    the pre-update geometry (``render_image_sharded`` validates a pairing
+    against the scene's vertices and raises on a stale one) —
+    light/material-only fits may pass one safely. ``train_step`` and
+    ``fit`` pass none."""
+    img = render_image_sharded(scene, cfg, mesh, backend=backend,
+                               shadow_quads=shadow_quads)
     return torch.mean(torch.square(img - target))
 
 
@@ -69,7 +68,8 @@ def train_step(scene: Scene, target: torch.Tensor, cfg: RenderConfig,
                mesh=None, lr: float = 1e-2,
                trainable: tuple[str, ...] = TRAINABLE,
                backend: str = "auto") -> TrainOut:
-    """One SGD step on the selected scene leaves."""
+    """One SGD step on the selected scene leaves. On a mesh every rank
+    calls it with the same arguments and returns the same scene."""
     live, params = _with_params(scene, trainable)
     loss = image_loss(live, target, cfg, mesh, backend)
     grads = torch.autograd.grad(loss, list(params.values()))
@@ -95,8 +95,8 @@ def fit(scene: Scene, target: torch.Tensor, cfg: RenderConfig, mesh=None,
         steps: int = 60, lrs: dict[str, float] | None = None,
         backend: str = "auto", log_every: int = 0, eps: float = 1e-3):
     """Multi-parameter scene recovery: per-leaf Adam on the selected Scene
-    leaves through the differentiable renderer. Returns (fitted scene, loss
-    history).
+    leaves through the sharded differentiable renderer (gradients summed
+    over the mesh's ranks). Returns (fitted scene, loss history).
 
     ``lrs`` maps leaf name -> Adam learning rate; leaves not named are
     frozen. The default set is the BASELINE config-5 parameters (vertices +

@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``uob_raytracer_tpu_torch/csrc`` (one nvcc call,
-one library) and then, every phase raising on failure and none caught:
+Builds the CUDA kernels from ``uob_raytracer_tpu_torch/csrc`` (one nvcc per
+source, all started together, linked into one library) and then, every
+phase raising on failure and none caught:
 
 1. holds the whole-table forward kernel against its plain torch version on
    the card (twelve 128x16 mode cases, the five baseline configs, the 64x64
@@ -51,18 +52,32 @@ one library) and then, every phase raising on failure and none caught:
    and ``dp=2`` (64 rows a rank, the fused kernels), each through
    ``render_image_sharded`` and five ``train_step``s, and holds rank 0's
    image and gradients to the single-process ones and the ranks' trained
-   scenes to each other.
+   scenes to each other;
+9. the roofline (``flops.py``): holds K6, the FP32 peak chains of
+   ``csrc/peak.cu``, to their plain versions in every mode (fma, add, mix,
+   bwdmix) and K (1 to 32), the census probe (the JAX test fixture's
+   counterpart) to its plain version and its SASS to 5 FMUL + 3 FADD, and
+   K7, the structure twin of the backward kernel (``csrc/bwd_twin.cu``),
+   sized to the backward's counts on its record, to its plain version at
+   the JAX package's roofline config (512x512, 2x2 AA, 10 samples, 1
+   bounce) and at full_1024; then, counts from 0, drives
+   ``flops.measure_fp32_peak`` over every mode and K with the SM clock
+   sampled beside it, the probe, and the twin on both records, and times
+   each twin beside the backward kernel on the same record (their ratio,
+   registers, spills and SASS census).
 
 The line before the last lists each kernel with its launches on its main
 path, its worst deviation from the plain version at full width, its times
 and its bound: the least time the card could take for the same work, the
 larger of bytes / 3.35 TB/s (inputs read once, outputs written once) and
 float32 operations / 67 TFLOP/s (NVIDIA's H100 SXM data sheet), with the
-operations counted analytically from this run's decision record (see
-``fwd_work`` and ``bwd_work``). No single PyTorch call computes a render
-kernel's function, so their ``library_ms`` is null; the segmented sum's is
-``index_add_``. The last line of standard output is a JSON object with the
-device.
+operations counted analytically from this run's decision record
+(``flops.fwd_work``, ``flops.bwd_work`` and the rest), and beside it the
+same bound against the measured no-FMA peak (the add chain of K6 at K=16:
+every kernel is built ``--fmad=false``). No single PyTorch call computes a
+render kernel's function, nor K6's or K7's, so their ``library_ms`` is
+null; the segmented sum's is ``index_add_``. The last line of standard
+output is a JSON object with the device.
 
 Imports neither jax nor the JAX package. Runs on one CUDA card: the first
 of those CUDA_VISIBLE_DEVICES lists, or device 0. Every rank it spawns is
@@ -89,8 +104,11 @@ import torch  # noqa: E402
 
 import uob_raytracer_tpu_torch as rt  # noqa: E402
 from uob_raytracer_tpu_torch import RenderConfig, ShadingModel, baseline_configs  # noqa: E402
+from uob_raytracer_tpu_torch import flops  # noqa: E402
+from uob_raytracer_tpu_torch.flops import (  # noqa: E402
+    bound, bwd_work, fwd_work, nearest_work, occluded_work, segment_sum_work)
 from uob_raytracer_tpu_torch.kernels import (  # noqa: E402
-    _build, partial, render_bwd, render_fwd)
+    _build, bwd_twin, partial, peak, render_bwd, render_fwd)
 from uob_raytracer_tpu_torch.ops.image import pack_argb, save_bmp  # noqa: E402
 from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads  # noqa: E402
 from uob_raytracer_tpu_torch.ops.replay import Residuals  # noqa: E402
@@ -115,8 +133,6 @@ TIGHT, OUTLIER_FRAC, OUTLIER_BOUND = 3e-4, 0.005, 0.45
 # budget is 1e-3 (this script's runs read 2e-6 to 4e-5 there); the 0.15 of
 # the JAX package's tests is for two differently ordered evaluations.
 GRAD_TOL, GRAD_TOL_GLASS = 1e-4, 1e-3
-# H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 LEAVES = tuple(f.name for f in dataclasses.fields(Scene))
 # the sharded path's frame (the JAX package's bench.py:streamed_bench_cfg)
 CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
@@ -347,84 +363,13 @@ def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
                          f"in three profiler runs")
 
 
-# ---------------------------------------------------------------------------
-# The kernels' bounds: bytes and float32 operations of the work these inputs
-# need. One operation = one add, multiply, divide, sqrt or compare on
-# float32, counted from the formulas of csrc/*.cu (no FMA: a multiply-add is
-# two). The per-item constants are hand counts, good to about +-30%.
-# ---------------------------------------------------------------------------
-
-def fwd_work(cfg, scene, quads, res: Residuals, record: bool):
-    """(bytes, operations) of one forward frame. Operations: per ray the
-    primary scan; per executed bounce step a general nearest-hit scan; per
-    shading ray the occlusion scan, in full for every lit sample (the
-    record's lit count) and one row for an occluded one (its scan stops at
-    the first occluder)."""
-    n_tri = scene.num_triangles
-    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
-    n_rows = n_tri if quads is None else len(quads[0]) + len(quads[1])
-    rays = res.prim_id.numel()
-    steps = int((res.bounce_id >= 0).sum())
-    shading = int((res.lit_cnt > 0).sum())   # lower bound: lit 0 not seen
-    lit = float(res.lit_cnt.sum())
-    occluded = shading * cfg.shadow_samples - lit
-    ops = (rays * (30 + 26 * n_tri + 40 * n_sph)
-           + steps * (90 + 70 * n_tri + 45 * n_sph)
-           + shading * 60 + (lit + occluded) * 30
-           + lit * (55 * n_rows + 30 * n_sph) + occluded * 55)
-    pix = cfg.width * cfg.height
-    nbytes = (16 * pix + (rays * (8 + 4 * cfg.bounces) if record else 0)
-              + 4 * (19 * n_tri + (13 * n_rows if quads is not None else 0)))
-    return nbytes, ops
-
-
-def bwd_work(cfg, scene, res: Residuals, streamed: bool = False):
-    """(bytes, operations) of one backward pass: the primary id, the lit
-    count and the cotangent read once, the per-block partial sums written
-    once (the whole-table kernel's hold every object, the streamed kernel's
-    the spheres and the camera), and of the per-step ids only those the
-    replay reads: one per executed step, and one more per chain for the
-    entry that ends it; the streamed kernel also reads a 76 B row and
-    writes a 64 B cotangent row per site that hit a triangle; per ray the
-    primary hit's replay and adjoint and the shading adjoint, per executed
-    bounce step its replay, the step's adjoint and the hit's."""
-    n_tri = scene.num_triangles
-    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
-    rays = res.prim_id.numel()
-    steps = int((res.bounce_id >= 0).sum())
-    chains = int((res.bounce_id[0] >= 0).sum()) if cfg.bounces else 0
-    pix = cfg.width * cfg.height
-    blocks = -(-pix // render_bwd.THREADS)
-    nbytes = rays * 8 + 4 * (steps + chains) + 12 * pix
-    if streamed:
-        ids = render_bwd.site_ids(res)
-        live = int(((ids >= 0) & (ids < n_tri)).sum())
-        nbytes += (76 + 64) * live + 4 * blocks * (n_sph * 16 + 21)
-    else:
-        nbytes += 4 * blocks * ((n_tri + n_sph) * render_bwd.GRAD_COLS + 21)
-    ops = rays * 450 + steps * 650
-    return nbytes, ops
-
-
-def segment_sum_work(n_tri: int, ids):
-    """(bytes, operations) of the segmented sum after one streamed backward:
-    per site that hit a triangle its 8 B position and its 64 B row read and
-    16 additions; the bounds read and the sums written once per triangle."""
-    live = int(((ids >= 0) & (ids < n_tri)).sum())
-    return (8 + 64) * live + (8 + 64) * n_tri, 16 * live
-
-
-def bound(nbytes, ops) -> tuple[float, str]:
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     render_fwd.LAUNCHES = render_fwd.STREAMED_LAUNCHES = 0
     render_bwd.LAUNCHES = render_bwd.STREAMED_LAUNCHES = 0
     render_bwd.SEGMENT_SUM_LAUNCHES = 0
     partial.NEAREST_LAUNCHES = partial.OCCLUDED_LAUNCHES = 0
+    peak.LAUNCHES = peak.PROBE_LAUNCHES = bwd_twin.LAUNCHES = 0
 
 
 def partial_counts() -> tuple[int, int]:
@@ -544,22 +489,6 @@ def check_partial(what: str, calls):
           f"on {frac_id:.4%}, bits on {frac_occ:.4%} of rays, worst t/pos "
           f"error {worst:.3g}", flush=True)
     return worst, frac_id, frac_occ, bits
-
-
-def nearest_work(n_tri: int, n_rays: int):
-    """(bytes, operations) of one nearest-hit launch: the 76 B rows and the
-    rays' 24 B read once, 52 B written per ray; per ray and row the general
-    Cramer test (about 70 operations), per ray the winner's position."""
-    return 76 * n_tri + 76 * n_rays, n_rays * (70 * n_tri + 20)
-
-
-def occluded_work(n_tri: int, bits):
-    """(bytes, operations) of one occlusion launch on these rays: a ray
-    that is lit needs every row (about 55 operations each), an occluded one
-    the row that occludes it."""
-    n, dark = bits.numel(), int(bits.sum())
-    return (52 * n_tri + 29 * n,
-            (n - dark) * 55 * n_tri + dark * 55 + 10 * n)
 
 
 def rank_main(rank: int, workdir: str, dp: int, tp: int) -> None:
@@ -1129,10 +1058,14 @@ def main() -> None:
         med["fwd_train_dev"] = kernel_device_ms(fwd_rec_train,
                                                 "render_fwd_kernel")
         med["bwd_dev"] = kernel_device_ms(bwd, "render_bwd_kernel")
-        med["fwd_bound"] = bound(*fwd_work(cfg, scene, quads, res, False))
-        med["fwd_rec_bound"] = bound(*fwd_work(cfg, scene, quads, res, True))
-        med["fwd_train_bound"] = bound(*fwd_work(cfg, scene, None, res, True))
-        med["bwd_bound"] = bound(*bwd_work(cfg, scene, res))
+        med["fwd_work"] = fwd_work(cfg, scene, quads, res, False)
+        med["fwd_bound"] = bound(*med["fwd_work"])
+        med["fwd_rec_work"] = fwd_work(cfg, scene, quads, res, True)
+        med["fwd_rec_bound"] = bound(*med["fwd_rec_work"])
+        med["fwd_train_work"] = fwd_work(cfg, scene, None, res, True)
+        med["fwd_train_bound"] = bound(*med["fwd_train_work"])
+        med["bwd_work"] = bwd_work(cfg, scene, res)
+        med["bwd_bound"] = bound(*med["bwd_work"])
         times[name] = med
         rays = cfg.width * cfg.height * cfg.aa_rays
         print(f"time {name} [{card}]: render() median {med['render']:.4f} ms "
@@ -1207,12 +1140,17 @@ def main() -> None:
         "segsum_dev": kernel_device_ms(big_bwd, "segment_sum_kernel"),
     }
     res_512 = render_fwd.render_fused_res(big, cfg_512, quads=q_big)[2]
-    lg["fwd_bound"] = bound(*fwd_work(cfg_big, big, q_big, res_big, False))
-    lg["fwd_train_bound"] = bound(*fwd_work(cfg_big, big, None, res_big_t, True))
-    lg["fwd_512_bound"] = bound(*fwd_work(cfg_512, big, q_big, res_512, False))
-    lg["bwd_bound"] = bound(*bwd_work(cfg_big, big, res_big_t, streamed=True))
-    lg["segsum_bound"] = bound(*segment_sum_work(big.num_triangles,
-                                                 render_bwd.site_ids(res_big_t)))
+    lg["fwd_work"] = fwd_work(cfg_big, big, q_big, res_big, False)
+    lg["fwd_bound"] = bound(*lg["fwd_work"])
+    lg["fwd_train_work"] = fwd_work(cfg_big, big, None, res_big_t, True)
+    lg["fwd_train_bound"] = bound(*lg["fwd_train_work"])
+    lg["fwd_512_work"] = fwd_work(cfg_512, big, q_big, res_512, False)
+    lg["fwd_512_bound"] = bound(*lg["fwd_512_work"])
+    lg["bwd_work"] = bwd_work(cfg_big, big, res_big_t, streamed=True)
+    lg["bwd_bound"] = bound(*lg["bwd_work"])
+    lg["segsum_work"] = segment_sum_work(big.num_triangles,
+                                                 render_bwd.site_ids(res_big_t))
+    lg["segsum_bound"] = bound(*lg["segsum_work"])
     print(f"time dense_8192 128x128 aa4 s3 b2 [{card}]: render() "
           f"{lg['render']:.4f} ms, of which detect_shadow_quads on the host "
           f"{detect_ms:.2f} ms (host clock, median of 3); forward wrapper "
@@ -1250,16 +1188,18 @@ def main() -> None:
     k2p = {
         "ms": median_ms(bwd600("whole"), 2, 5),
         "dev": kernel_device_ms(bwd600("whole"), "render_bwd_kernel"),
-        "bound": bound(*bwd_work(cfg_big, d600, res6b)),
+        "work": bwd_work(cfg_big, d600, res6b),
         "streamed_ms": median_ms(bwd600("streamed"), 2, 5),
         "streamed_dev": kernel_device_ms(bwd600("streamed"),
                                          "render_bwd_streamed_kernel"),
         "streamed_segsum_dev": kernel_device_ms(bwd600("streamed"),
                                                 "segment_sum_kernel"),
-        "streamed_bound": bound(*bwd_work(cfg_big, d600, res6b, streamed=True)),
+        "streamed_work": bwd_work(cfg_big, d600, res6b, streamed=True),
         "plain": median_ms(lambda: render_bwd.render_replay_bwd_plain(
             d600, cfg_big, res6b, g6b), 1, 3),
     }
+    k2p["bound"] = bound(*k2p["work"])
+    k2p["streamed_bound"] = bound(*k2p["streamed_work"])
     print(f"time dense_600 128x128 aa4 s3 b2 backward [{card}]: whole-table "
           f"wrapper {k2p['ms']:.4f} ms, device {k2p['dev']:.4f} ms, bound "
           f"{k2p['bound'][0]:.4f} ms by {k2p['bound'][1]}; streamed wrapper "
@@ -1442,10 +1382,12 @@ def main() -> None:
         "k5_dev": kernel_device_ms(one_fwd, "occluded_tris_kernel", n=4,
                                    per_call=3),
     }
-    pt["k4_bound"] = bound(*nearest_work(big.num_triangles, n_rays))
+    pt["k4_work"] = nearest_work(big.num_triangles, n_rays)
+    pt["k4_bound"] = bound(*pt["k4_work"])
     k5_works = [occluded_work(big.num_triangles, b) for b in bits_big]
-    pt["k5_bound"] = bound(sum(w[0] for w in k5_works) / len(k5_works),
-                           sum(w[1] for w in k5_works) / len(k5_works))
+    pt["k5_work"] = (sum(w[0] for w in k5_works) / len(k5_works),
+                     sum(w[1] for w in k5_works) / len(k5_works))
+    pt["k5_bound"] = bound(*pt["k5_work"])
     lit_share = 1.0 - torch.stack(bits_big).float().mean().item()
     print(f"time sharded path on one process, dense_8192 128x128 aa4 s3 b2 "
           f"[{card}]: frame (3 nearest-hit + 3 occlusion launches and the "
@@ -1461,45 +1403,254 @@ def main() -> None:
           f"by {pt['k5_bound'][1]}, wrapper {pt['k5']:.4f} ms, plain "
           f"{pt['k5_plain']:.2f} ms", flush=True)
 
+    # --- 11. the roofline: K6, the FP32 peak chains (every mode and K held
+    # to its plain version, then timed: the card's no-FMA ceiling), the
+    # census probe (the JAX test fixture's counterpart), and K7, the
+    # structure twin of K2, at the JAX package's roofline config
+    # (bench.py:837-838) and at full_1024, held to its plain version and
+    # timed beside K2 ---
+    # 11a. K6 against its plain version on a seeded input of the timed shape
+    jitter = 1.0 - 1e-4 * np.random.RandomState(81).uniform(
+        size=flops.PEAK_SHAPE)
+    k6_match, k6_err = {}, 0.0
+    for mode in peak.MODES:
+        x = torch.from_numpy(((0.001 if mode == "add" else 0.99999) * jitter)
+                             .astype(np.float32)).cuda()
+        for k in peak.KS:
+            got = peak.peak_chain(mode, k, x)
+            want = peak.peak_chain_plain(mode, k, x)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K6 {mode} K={k}: not finite")
+            ulps = int((got.view(torch.int32) - want.view(torch.int32))
+                       .abs().max())
+            if ulps > (1 if mode == "fma" else 0):
+                raise AssertionError(f"K6 {mode} K={k}: {ulps} ulp off its "
+                                     f"plain version (budget "
+                                     f"{1 if mode == 'fma' else 0})")
+            k6_err = max(k6_err, (got - want).abs().max().item())
+            k6_match[mode, k] = "bit-equal" if ulps == 0 else f"{ulps} ulp"
+    print(f"K6 peak chains vs plain, {len(k6_match)} instances on 512x512: "
+          f"fma within 1 ulp (plain in float64, rounded once), add, mix and "
+          f"bwdmix bit-equal; worst {k6_err:.3g}", flush=True)
+
+    # 11b. the census probe: its values, and 5 FMUL + 3 FADD in its SASS,
+    # the 8 operations the JAX census counts for the same body
+    xp = torch.from_numpy(np.linspace(0.5, 1.5, 8 * 128, dtype=np.float32)
+                          ).cuda()
+    probe_out = peak.census_probe(xp)
+    if not torch.equal(probe_out, peak.census_probe_plain(xp)):
+        raise AssertionError("census probe differs from its plain version")
+    probe = flops.sass_census("census_probe_kernel")
+    if (probe["opcodes"].get("FMUL"), probe["opcodes"].get("FADD"),
+            probe["fp32"]) != (5, 3, 8):
+        raise AssertionError(f"census probe SASS: {probe['opcodes']}")
+    print(f"census probe: bit-equal to its plain version; SASS {probe['fp32']} "
+          f"FP32 instructions (FMUL {probe['opcodes']['FMUL']}, FADD "
+          f"{probe['opcodes']['FADD']}) = the JAX census's 8.0 ops per lane; "
+          f"int {probe['int']}, mem {probe['mem']}, control "
+          f"{probe['control']}, other {probe['other']}", flush=True)
+
+    # 11c. K7 against its plain version, sized to K2's counts on each record
+    cfg_roof = RenderConfig(width=512, height=512, aa_x=2, aa_y=2,
+                            shadow_samples=10, bounces=1)
+    res_roof = render_fwd.render_fused_res(cornell, cfg_roof, quads=None)[2]
+    k2_res = flops.kernel_resources("render_bwd_kernel")
+    n_obj = cornell.num_triangles + cornell.num_spheres
+    twins = {}
+    for tname, tcfg, tres in (("512x512 aa4 s10 b1", cfg_roof, res_roof),
+                              ("full_1024", RenderConfig(),
+                               records["full_1024"])):
+        targets = flops.bwd_twin_targets(cornell, tcfg, tres)
+        twin = flops.build_bwd_structure_twin(
+            cornell, tcfg, tres, **targets,
+            target_registers=k2_res["registers"])
+        sums, img = twin["run"]()
+        ref = twin["run_plain"]()
+        torch.cuda.synchronize()
+        rel = ((sums.double() - ref["sums"]).abs()
+               / ref["abs_sums"].clamp(min=1e-30)).max().item()
+        visits = sums[:n_obj * 16].reshape(n_obj, 16)[:, 15].round().long()
+        img_rel = ((img - ref["img"]).abs()
+                   / ref["img"].abs().clamp(min=1e-30)).max().item()
+        if (rel > 1e-5 or img_rel > 1e-5 or not torch.equal(
+                visits, ref["visits"]) or not torch.isfinite(sums).all()):
+            raise AssertionError(
+                f"K7 at {tname}: sums off the plain version by {rel:.3g} of "
+                f"their terms' magnitudes (budget 1e-5), image by "
+                f"{img_rel:.3g}, visits equal: "
+                f"{torch.equal(visits, ref['visits'])}")
+        g_t = seeded_cotangent((tcfg.height, tcfg.width, 3), 91)
+        twins[tname] = {
+            "twin": twin, "cfg": tcfg, "res": tres, "rel": rel,
+            "abs": (sums.double() - ref["sums"]).abs().max().item(),
+            "img_equal": torch.equal(img, ref["img"]), "targets": targets,
+            "resources": flops.kernel_resources(bwd_twin.symbol(
+                twin["n_pool"])),
+            "k2": lambda c=tcfg, r=tres, gg=g_t: render_bwd.render_replay_bwd(
+                cornell, c, r, gg)}
+        print(f"K7 structure twin at {tname}: vs plain, sums within {rel:.3g} "
+              f"of their terms' magnitudes (budget 1e-5), visits exact "
+              f"({int(visits.sum())} sites), image "
+              f"{'bit-equal' if twins[tname]['img_equal'] else f'within {img_rel:.3g}'}"
+              f"; sizing n_main {twin['n_main']}, n_step {twin['n_step']}, "
+              f"slots {twin['slots']}, divs {twin['divs']}, pool "
+              f"{twin['n_pool']}; per ray {twin['census_per_lane']} ops "
+              f"(K2 {twin['target_per_lane']}), depth {twin['depth']} "
+              f"(K2 {twin['target_depth']}), weighted depth {twin['wdepth']} "
+              f"(K2 {twin['target_wdepth']}), slow {twin['slow_per_lane']} "
+              f"(K2 {twin['target_slow_per_lane']}), bounce steps per ray "
+              f"{targets['live']:.4f}", flush=True)
+
+    # 11d. the roofline's main path, counts from 0: the peak curve (every
+    # mode and K), the census probe, the twin on both records; the SM clock
+    # and the power sampled beside it
+    smi = subprocess.Popen(
+        ["nvidia-smi", f"--id={DEVICE_ID}", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        reset_counts()
+        t_roof = time.perf_counter()
+        peaks = flops.measure_fp32_peak(iters=20, ks=peak.KS)
+        peak.census_probe(xp)
+        for t in twins.values():
+            t["twin"]["run"]()
+        torch.cuda.synchronize()
+        t_roof = time.perf_counter() - t_roof
+        roof_counts = (peak.LAUNCHES, peak.PROBE_LAUNCHES, bwd_twin.LAUNCHES)
+    finally:
+        smi.terminate()
+        smi_out = smi.communicate(timeout=30)[0]
+    if min(roof_counts) < 1:
+        raise AssertionError(f"roofline: launches {roof_counts} (K6, census "
+                             f"probe, K7)")
+    samples = [[float(v) for v in line.split(",")]
+               for line in smi_out.splitlines() if line.count(",") == 1]
+    sm_mhz = [s[0] for s in samples]
+    watts = [s[1] for s in samples]
+    clock = (f"SM clock {min(sm_mhz):.0f}-{max(sm_mhz):.0f} MHz (median "
+             f"{statistics.median(sm_mhz):.0f}), power up to {max(watts):.1f} "
+             f"W, {len(samples)} samples over {t_roof:.1f} s" if samples
+             else "SM clock not sampled")
+    add_peak = peaks["add"]
+    print(f"roofline main path [{card}; {clock}]: launches K6 {roof_counts[0]}, "
+          f"census probe {roof_counts[1]}, K7 {roof_counts[2]}; peaks at K=16 "
+          f"(T source ops/s, FMA = 1): fma {peaks['fma'] / 1e12:.3f}, add "
+          f"{add_peak / 1e12:.3f}, mix {peaks['mix'] / 1e12:.3f}, bwdmix "
+          f"{peaks['bwdmix'] / 1e12:.3f}; the build is --fmad=false, so the "
+          f"add chain is the ceiling of the port's kernels", flush=True)
+    for mode in peak.MODES:
+        for k, v in peaks[f"{mode}_k"].items():
+            print(f"K6 {mode} K={k} [{card}]: {k6_match[mode, k]}; "
+                  f"{v['rate'] / 1e12:.4f} T source ops/s, "
+                  f"{v['sass_rate'] / 1e12:.4f} T FP32 SASS instructions/s, "
+                  f"{v['issue_rate'] / 1e12:.4f} T SASS instructions/s "
+                  f"({v['fp32_instrs']:.2f} FP32 of {v['instrs']:.2f} SASS "
+                  f"instructions an iteration for {k * peak.ops_per_iter(mode)}"
+                  f" source ops); {v['ms']:.4f} ms a launch (slope "
+                  f"{v['slope_ms']:.4f})", flush=True)
+
+    # 11e. timings: K6's headline fma chain and its plain version, the
+    # probe, each twin beside K2 on the same record
+    x16 = torch.full(flops.PEAK_SHAPE, 0.99999, device="cuda")
+    k6 = {"ms": median_ms(lambda: peak.peak_chain("fma", 16, x16), 2, 5),
+          "dev": kernel_device_ms(lambda: peak.peak_chain("fma", 16, x16),
+                                  "peak_chain"),
+          "plain": median_ms(lambda: peak.peak_chain_plain("fma", 16, x16),
+                             0, 2)}
+    # the probe runs for about a microsecond, too short for the profiler to
+    # keep its records: 50 launches queued behind a sleep, CUDA events
+    probe_t = {"ms": median_ms(lambda: peak.census_probe(xp), 3, 5),
+               "dev": flops.device_ms(lambda: peak.census_probe(xp), 50),
+               "plain": median_ms(lambda: peak.census_probe_plain(xp), 1, 3)}
+    k2_sass = flops.sass_census("render_bwd_kernel")
+    for tname, t in twins.items():
+        tw, tcfg, tres = t["twin"], t["cfg"], t["res"]
+        t["dev"] = kernel_device_ms(tw["run"], "bwd_twin_kernel")
+        t["k2_dev"] = kernel_device_ms(t["k2"], "render_bwd_kernel")
+        t["ms"] = median_ms(tw["run"], 2, 5)
+        t["plain"] = median_ms(tw["run_plain"], 0, 2)
+        rays = tres.prim_id.numel()
+        pix = tcfg.width * tcfg.height
+        t["work"] = (bwd_work(tcfg, cornell, tres)[0] + 12 * pix
+                     + 4 * n_obj * 17, tw["census_per_lane"] * rays)
+        t["k2_bound"] = bound(*bwd_work(tcfg, cornell, tres))
+        sass = flops.sass_census(bwd_twin.symbol(tw["n_pool"]))
+        # the step chain: the innermost loop with FP32 work that touches no
+        # memory but the constant bank
+        step_loop = next(
+            lp for lp in sass["loops"] if lp["fp32"] and all(
+                op in ("LDC", "ULDC") for op in lp["opcodes"]
+                if flops.sass_class(op) == "mem"))
+        r, kr = t["resources"], k2_res
+        print(f"K7 vs K2 at {tname} [{card}]: twin device {t['dev']:.4f} ms, "
+              f"K2 device {t['k2_dev']:.4f} ms, twin / K2 = "
+              f"{t['dev'] / t['k2_dev']:.4f}; registers twin {r['registers']} "
+              f"(pool {tw['n_pool']}, spills {r['spill_stores']}/"
+              f"{r['spill_loads']} B, stack {r['stack_bytes']} B), K2 "
+              f"{kr['registers']} (spills {kr['spill_stores']}/"
+              f"{kr['spill_loads']} B, stack {kr['stack_bytes']} B); static "
+              f"SASS fp32/int/mem/control twin {sass['fp32']}/{sass['int']}/"
+              f"{sass['mem']}/{sass['control']}, K2 {k2_sass['fp32']}/"
+              f"{k2_sass['int']}/{k2_sass['mem']}/{k2_sass['control']}; the "
+              f"twin's innermost loop (the step chain, "
+              f"{17 * bwd_twin.STEP_ACCS} source ops an iteration) holds "
+              f"{step_loop['fp32']} FP32 of {step_loop['total']} SASS "
+              f"instructions; wrapper {t['ms']:.4f} ms, plain "
+              f"{t['plain']:.2f} ms; K2 bound {t['k2_bound'][0]:.4f} ms by "
+              f"{t['k2_bound'][1]} (data sheet), "
+              f"{bound(*bwd_work(tcfg, cornell, tres), peak_fp32=add_peak)[0]:.4f}"
+              f" ms at the measured no-FMA peak", flush=True)
+
     full = times["full_1024"]
     src = "uob_raytracer_tpu_torch/csrc/"
     jax_fwd = "uob_raytracer_tpu/kernels/render_fwd.py"
     jax_bwd = "uob_raytracer_tpu/kernels/render_bwd.py"
 
-    def entry(name, source, replaces, n_launches, err, ms, plain_ms, bnd,
-              device_ms, library_ms=None, **more):
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms, work,
+              device_ms, library_ms=None, measured_work=None, **more):
+        """One kernel's row. ``work`` is (bytes, operations) as
+        ``flops.bound`` takes it; the bound is stated against the data
+        sheet and against the measured no-FMA peak (the add chain at K=16,
+        one instruction per operation; ``measured_work`` where the
+        operations there are counted otherwise)."""
+        bnd = bound(*work)
+        at_peak = bound(*(measured_work or work), peak_fp32=add_peak)
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms, "device_ms": device_ms, **more}
+                "library_ms": library_ms, "device_ms": device_ms,
+                "bound_ms_measured_peak": at_peak[0],
+                "bound_by_measured_peak": at_peak[1], **more}
 
     kernels = [
         entry("K1 render_fwd (whole-table)", "render_fwd.cu",
               f"{jax_fwd}:649", launches, worst_by_cfg["full_1024"],
-              full["fwd"], full["plain"], full["fwd_bound"], full["fwd_dev"],
+              full["fwd"], full["plain"], full["fwd_work"], full["fwd_dev"],
               at="full_1024, render()", render_ms=full["render"]),
         entry("K1r render_fwd with residuals", "render_fwd.cu",
               f"{jax_fwd}:670", train_launches[0], worst_by_cfg["full_1024"],
-              full["fwd_rec"], full["plain"], full["fwd_train_bound"],
+              full["fwd_rec"], full["plain"], full["fwd_train_work"],
               full["fwd_train_dev"], at="full_1024, 5 train_steps (record, "
               "no quads)", device_ms_with_quads=full["fwd_rec_dev"],
               bound_ms_with_quads=full["fwd_rec_bound"][0]),
         entry("K2 render_bwd (whole-table)", "render_bwd.cu",
               f"{jax_bwd}:366", train_launches[1], bwd_abs, full["bwd"],
-              full["plain_bwd"], full["bwd_bound"], full["bwd_dev"],
+              full["plain_bwd"], full["bwd_work"], full["bwd_dev"],
               at="full_1024, 5 train_steps", max_rel_err=bwd_rel,
               train_step_ms=full["step"]),
         entry("K2' render_bwd past 32 objects", "render_bwd.cu",
               f"{jax_bwd}:126", train_launches[1], k2p_abs, k2p["ms"],
-              k2p["plain"], k2p["bound"], k2p["dev"],
+              k2p["plain"], k2p["work"], k2p["dev"],
               at="the same kernel and count as K2; timed at 600 triangles "
               "128x128 aa4 s3 b2", max_rel_err=k2p_rel,
               streamed_device_ms_same_record=k2p["streamed_dev"],
               streamed_segment_sum_device_ms=k2p["streamed_segsum_dev"]),
         entry("K3f render_fwd_streamed", "render_fwd_streamed.cu",
               f"{jax_fwd}:263", k3f_launches, worst_big, lg["fwd"],
-              lg["plain"], lg["fwd_bound"], lg["fwd_dev"],
+              lg["plain"], lg["fwd_work"], lg["fwd_dev"],
               at="dense_8192 128x128 aa4 s3 b2, render()",
               render_ms=lg["render"], detect_shadow_quads_host_ms=detect_ms,
               launches_5_train_steps=big_train_launches[1],
@@ -1510,19 +1661,19 @@ def main() -> None:
               render_ms_512=lg["render_512"]),
         entry("K3b render_bwd_streamed", "render_bwd_streamed.cu",
               f"{jax_bwd}:381", big_train_launches[3], k3b_abs, lg["bwd"],
-              lg["plain_bwd"], lg["bwd_bound"], lg["bwd_dev"],
+              lg["plain_bwd"], lg["bwd_work"], lg["bwd_dev"],
               at="dense_8192 128x128 aa4 s3 b2, 5 train_steps",
               max_rel_err=k3b_rel, train_step_ms=lg["step"]),
         entry("segment_sum (K3b's triangle cotangents)",
               "render_bwd_streamed.cu", f"{jax_bwd}:990",
               big_train_launches[4], seg_abs, lg["segsum"], lg["index_add"],
-              lg["segsum_bound"], lg["segsum_dev"],
+              lg["segsum_work"], lg["segsum_dev"],
               library_ms=lg["index_add"],
               at="dense_8192 128x128 aa4 s3 b2, 5 train_steps; plain version "
               "= index_add_"),
         entry("K4 nearest_tris (per-shard nearest hit)", "partial.cu",
               "uob_raytracer_tpu/kernels/partial.py:64", k4_launches, k4_err,
-              pt["k4"], pt["k4_plain"], pt["k4_bound"], pt["k4_dev"],
+              pt["k4"], pt["k4_plain"], pt["k4_work"], pt["k4_dev"],
               at="dense_8192 128x128 aa4 s3 b2, the frame on one process "
               "(shade, kernel route); ms and plain_ms on its primary batch",
               ids_differ_from_plain=k4_frac, backward_max_rel_err=k4_bwd_rel,
@@ -1536,7 +1687,7 @@ def main() -> None:
         entry("K5 occluded_tris (per-shard occlusion)", "partial.cu",
               "uob_raytracer_tpu/kernels/partial.py:194", k5_launches,
               1.0 if k5_frac else 0.0,
-              pt["k5"], pt["k5_plain"], pt["k5_bound"], pt["k5_dev"],
+              pt["k5"], pt["k5_plain"], pt["k5_work"], pt["k5_dev"],
               at="dense_8192 128x128 aa4 s3 b2, the frame on one process "
               "(shade, kernel route); ms and plain_ms on its first shadow "
               "batch; max_abs_err is over bits: 1 if any differs",
@@ -1545,7 +1696,56 @@ def main() -> None:
               launches_rank0_tp2_5_train_steps=tp_outs[0]["step_counts"][6],
               dp2_two_ranks_one_card_frame_ms=ranks["dp=2"]["frame_ms"],
               dp2_two_ranks_one_card_train_step_ms=ranks["dp=2"]["step_ms"]),
+        entry("K6 peak_chain (FP32 peak chains)", "peak.cu",
+              "uob_raytracer_tpu/flops.py:489", roof_counts[0], k6_err,
+              k6["ms"], k6["plain"],
+              (8 * x16.numel(), 2 * x16.numel() * peak.INNER * 16), k6["dev"],
+              measured_work=(8 * x16.numel(), x16.numel() * peak.INNER * 16),
+              at="the fma chain at K=16 on 512x512 (an FMA is two operations "
+              "against the data sheet, one instruction against the measured "
+              "peak); launches: every mode and K, 20 + 2 x 20 timed and 2 "
+              "warm-up each; max_abs_err over all 24 instances",
+              peak_ops_s={m: peaks[m] for m in peak.MODES},
+              sass_instr_s=peaks["sass"],
+              curve={m: {k: {f: v[f] for f in ("rate", "sass_rate",
+                                                "issue_rate", "instrs",
+                                                "fp32_instrs", "ms",
+                                                "slope_ms")}
+                         for k, v in peaks[f"{m}_k"].items()}
+                     for m in peak.MODES},
+              clock=clock),
+        entry("census probe (the test fixture's counterpart)", "peak.cu",
+              "tests/test_flops.py:19", roof_counts[1], 0.0, probe_t["ms"],
+              probe_t["plain"], (8 * xp.numel(), 8 * xp.numel()),
+              probe_t["dev"], at="one (8,128) tile of float32",
+              sass_fp32=probe["fp32"], sass_opcodes=probe["opcodes"]),
+        entry("K7 bwd_twin (structure twin of K2)", "bwd_twin.cu",
+              "uob_raytracer_tpu/flops.py:743", roof_counts[2],
+              twins["full_1024"]["abs"], twins["full_1024"]["ms"],
+              twins["full_1024"]["plain"], twins["full_1024"]["work"],
+              twins["full_1024"]["dev"],
+              at="full_1024 (K2's record); launches: one at each of the two "
+              "configs; max_abs_err over the summed partials",
+              twin_over_k2={n: t["dev"] / t["k2_dev"] for n, t in twins.items()},
+              k2_device_ms={n: t["k2_dev"] for n, t in twins.items()},
+              twin_device_ms={n: t["dev"] for n, t in twins.items()},
+              sums_rel_err={n: t["rel"] for n, t in twins.items()},
+              sizing={n: {f: t["twin"][f] for f in (
+                  "n_main", "n_step", "slots", "divs", "n_pool",
+                  "census_per_lane", "target_per_lane", "depth",
+                  "target_depth", "wdepth", "target_wdepth", "registers",
+                  "target_registers")} for n, t in twins.items()},
+              resources={n: t["resources"] for n, t in twins.items()},
+              k2_resources=k2_res),
     ]
+    for k in kernels:
+        print(f"bound of {k['name']}: device {k['device_ms']:.4f} ms; "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']} at the data sheet "
+              f"({k['bound_ms'] / k['device_ms']:.1%}), "
+              f"{k['bound_ms_measured_peak']:.4f} ms by "
+              f"{k['bound_by_measured_peak']} at the measured no-FMA peak "
+              f"({k['bound_ms_measured_peak'] / k['device_ms']:.1%})",
+              flush=True)
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']}: no launch on its main path")

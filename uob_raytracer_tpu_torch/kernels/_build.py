@@ -1,11 +1,13 @@
 """Build the CUDA sources of ``csrc/`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-``extern "C"`` interface, which ``ctypes`` loads; no PyTorch headers are
-involved, so the build takes seconds. The library goes to
-``build/torch_kernels/`` at the root of the checkout, under a name that
-carries a hash of the sources and flags, so an edit rebuilds it. A failed
-build raises; there is no fallback.
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per
+source, all started together, and links the objects into one shared
+library with a plain ``extern "C"`` interface, which ``ctypes`` loads; no
+PyTorch headers are involved, so the build takes seconds. The library goes
+to ``build/torch_kernels/`` at the root of the checkout, under a name that
+carries a hash of the sources and flags, so an edit rebuilds it; beside it
+the ``.log`` holds each source's command and ptxas report, in source order.
+A failed build raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -25,11 +27,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 # --fmad=false: no FMA contraction, so the kernels can be held tightly to
 # their plain torch versions (see the note in csrc/render_fwd.cu). Never
 # --use_fast_math: division and sqrt stay IEEE. -Xptxas -v reports each
-# kernel's registers, shared memory and spills into the build log. -t 0
-# compiles the sources side by side, one thread per CPU at most.
+# kernel's registers, shared memory and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-t", "0")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -50,33 +50,54 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libuob_rt_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _nvcc() -> str:
+def tool(name: str) -> str:
+    """A program of the CUDA toolkit (``nvcc``, ``cuobjdump``), from
+    $CUDA_HOME/bin or the PATH; raises where there is none."""
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(cuda_home, "bin", name), shutil.which(name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH): "
-                       "the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found (looked in $CUDA_HOME/bin and "
+                       f"PATH): it ships with the CUDA toolkit")
 
 
 def build() -> tuple[str, float]:
     """Compile the sources if their library is missing. Returns (library
-    path, seconds spent compiling; 0 when it was already built)."""
+    path, seconds spent compiling and linking; 0 when it was already
+    built)."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = tool("nvcc")
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    objs = tmp + ".d"
+    os.makedirs(objs, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(objs, os.path.basename(src)[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
     seconds = time.perf_counter() - t0
+    shutil.rmtree(objs, ignore_errors=True)
     with open(path[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        f.write("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
     return path, seconds
 

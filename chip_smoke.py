@@ -30,7 +30,16 @@ phase raising on failure and none caught:
    whole-table kernel at 600, two runs bit-equal; then drives ``render()``
    on the 8,192-triangle scene at 128x128 and at 512x512, and five
    ``train_step``s on it (one streamed forward, one streamed backward and
-   one segmented sum per step, a falling loss);
+   one segmented sum per step, a falling loss); the segmented sum against
+   its float64 value, on that record and on one run of 100,000 equal ids;
+   past 16 bounce steps, the deep instances of both backward kernels (the
+   chain in a device buffer) on the mirror box (the five walls mirrored,
+   the camera inside the box) at 512x512 and on the 600-triangle scene's
+   at 256x256, 32 bounces, against the plain version in row bands, timed
+   beside the register instance, and ``render_image``'s gradient through
+   each; the banded full-size gradient: ``render_image(...)``'s backward on
+   the 8,192-triangle scene at full_1024's config (two row bands at the
+   2 GiB limit, two runs bit-equal, within 1e-5 of four bands);
 6. measures the forward of both kernels on dense scenes of 26 to 8,192
    triangles, each kernel wherever it fits (the cut-over curve);
 7. times, per baseline config and on the large scene, ``render()``, the
@@ -139,6 +148,7 @@ CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
                        shadow_samples=3, bounces=2)
 GRAD_LEAVES = ("light_pos", "light_color", "tri_v0", "tri_v1", "tri_v2",
                "tri_rgb", "camera_pos", "yaw", "pitch")
+MIRROR_FOCAL = 4400.0
 
 
 def images_match(img, ref, what: str) -> tuple[float, float]:
@@ -215,6 +225,27 @@ def dense_scene(n_tri: int, seed: int = 1):
          c + rng.uniform(0.01, 0.05, (extra, 3)).astype(np.float32)], axis=1)
     return rt.add_triangles(base, verts, np.full((extra, 3), 0.6, np.float32),
                             np.ones((extra,), np.float32))
+
+
+def mirror_box(scene):
+    """The scene with the Cornell box's five walls (triangles 0-9) mirrored,
+    seen from inside the box at (0, -0.3, 0) along the x axis through a 2x
+    zoom (``MIRROR_FOCAL``): rays bounce between the side walls, and many
+    chains end on a block or a small triangle past 16 bounce steps (the
+    mirror box of tests/test_torch_render_bwd.py)."""
+    mat = scene.tri_mat.clone()
+    mat[:10] = 0.0
+    return dataclasses.replace(
+        scene, tri_mat=mat,
+        camera_pos=torch.tensor([0.0, -0.3, 0.0], device=mat.device),
+        yaw=torch.tensor(np.pi / 2, dtype=torch.float32, device=mat.device))
+
+
+def with_grad(scene, names=GRAD_LEAVES):
+    """The scene with fresh leaves ``names`` that require a gradient."""
+    return dataclasses.replace(scene, **{
+        k: getattr(scene, k).detach().clone().requires_grad_(True)
+        for k in names})
 
 
 def same_frame(a, b) -> bool:
@@ -332,6 +363,10 @@ def time_frames(fn, warmup: int, n: int) -> list[float]:
     return out
 
 
+def median_ms(fn, warmup: int, n: int) -> float:
+    return statistics.median(time_frames(fn, warmup, n))
+
+
 def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
     """Mean device time of one launch of ``kernel`` over n calls of fn
     (``per_call`` launches each), from torch.profiler (a wrapper's time
@@ -361,6 +396,12 @@ def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
             return sum(k.self_device_time_total for k in rows) / count / 1000.0
     raise AssertionError(f"profiler kept {seen} of {n} {kernel} launches "
                          f"in three profiler runs")
+
+
+def segment_sum_device_ms(fn, n: int = 10) -> float:
+    """Device time of one segmented sum (both of its passes) in each of n
+    calls of fn, which makes one."""
+    return 2 * kernel_device_ms(fn, "segment_sum_", n=n, per_call=2)
 
 
 def reset_counts() -> None:
@@ -904,9 +945,30 @@ def main() -> None:
     if seg_rel > 1e-5:
         raise AssertionError(f"segmented sum off index_add_ by {seg_rel:.3g} "
                              f"relative (budget 1e-5)")
+    # and against the float64 sum (index_add_ in float64), on this record
+    # and on one run of 100,000 equal ids (split over warps in tiles)
+    seg64 = render_bwd.segment_sum_plain(ids_big, rows_big.double(),
+                                         big.num_triangles)
+    ids_run = torch.full((100_000,), 3, dtype=torch.int32, device="cuda")
+    rows_run = seeded_cotangent((100_000, 16), 53)
+    run_one = render_bwd.segment_sum(ids_run, rows_run, 8)
+    run_two = render_bwd.segment_sum(ids_run, rows_run, 8)
+    run64 = render_bwd.segment_sum_plain(ids_run, rows_run.double(), 8)
+    torch.cuda.synchronize()
+    seg_rel64 = ((seg_one.double() - seg64).abs().max()
+                 / seg64.abs().max()).item()
+    run_rel64 = ((run_one.double() - run64).abs().max()
+                 / run64.abs().max()).item()
+    if not torch.equal(run_one, run_two) or max(seg_rel64, run_rel64) > 1e-6:
+        raise AssertionError(f"segmented sum off its float64 value by "
+                             f"{seg_rel64:.3g} (record) and {run_rel64:.3g} "
+                             f"(100,000 equal ids) of the sums' magnitude "
+                             f"(budget 1e-6), or two runs differ")
     print(f"segmented sum over {ids_big.numel()} sites into "
           f"{big.num_triangles} rows: two runs bit-equal, {seg_rel:.3g} "
-          f"relative off index_add_ (budget 1e-5)", flush=True)
+          f"relative off index_add_ (budget 1e-5), {seg_rel64:.3g} off the "
+          f"float64 sum (budget 1e-6); one run of 100,000 equal ids: two "
+          f"runs bit-equal, {run_rel64:.3g} off the float64 sum", flush=True)
 
     # 7d. main path three: render() on the 8,192-triangle scene, 128x128 and
     # 512x512 (a 16-row band of the latter held to the plain version)
@@ -972,6 +1034,130 @@ def main() -> None:
           f"{big_train_launches[4]} segmented-sum launches, no whole-table "
           f"launch, loss {losses_big[0]:.6g} -> {losses_big[4]:.6g}, light "
           f"{[round(v, 4) for v in live.light_pos.tolist()]}", flush=True)
+
+    # 7f. past 16 bounce steps: the mirror box at 512x512, 32 bounces, the
+    # deep instance of the whole-table backward (its chain in a device
+    # buffer) against the plain version in eight row bands, timed beside the
+    # register instance at 16 bounces on the same scene; the 600-triangle
+    # scene's mirror box at 256x256 through the streamed backward's deep
+    # instance; and render_image's gradient through each, counts from 0
+    deep = {}
+    for name, sc, size, bands, kname in (
+            ("mirror box", mirror_box(cornell), 512, 8, "render_bwd_kernel"),
+            ("600-triangle mirror box", mirror_box(d600), 256, 4,
+             "render_bwd_streamed_kernel")):
+        cfg_d = RenderConfig(width=size, height=size, aa_x=1, aa_y=1,
+                             shadow_samples=2, bounces=32,
+                             focal_length=MIRROR_FOCAL)
+        res_d = render_fwd.render_fused_res(sc, cfg_d)[2]
+        hits = (res_d.bounce_id >= 0).sum(dim=(1, 2, 3))
+        past = int(hits[render_bwd.REG_BOUNCES:].sum())
+        if not past:
+            raise AssertionError(f"{name}: no chain past "
+                                 f"{render_bwd.REG_BOUNCES} bounce steps")
+        rel_d, abs_d = check_backward(
+            sc, cfg_d, res_d, seed=71,
+            what=f"{size}x{size} {name}, 32 bounces (deep instance; plain "
+            f"in {bands} bands)", bands=bands)
+        g_d = seeded_cotangent((size, size, 3), 71)
+        cfg_r = dataclasses.replace(cfg_d, bounces=render_bwd.REG_BOUNCES)
+        res_r = render_fwd.render_fused_res(sc, cfg_r)[2]
+        d = {"rel": rel_d, "abs": abs_d, "hits": int(hits.sum()),
+             "past": past, "hits_reg": int((res_r.bounce_id >= 0).sum()),
+             "dev": kernel_device_ms(lambda: render_bwd.render_replay_bwd(
+                 sc, cfg_d, res_d, g_d), kname, n=5),
+             "dev_reg": kernel_device_ms(lambda: render_bwd.render_replay_bwd(
+                 sc, cfg_r, res_r, g_d), kname, n=5),
+             "ms": median_ms(lambda: render_bwd.render_replay_bwd(
+                 sc, cfg_d, res_d, g_d), 1, 3),
+             "plain": median_ms(lambda: plain_bwd_banded(
+                 sc, cfg_d, res_d, g_d, bands), 0, 1),
+             "work": bwd_work(cfg_d, sc, res_d,
+                              streamed=kname != "render_bwd_kernel")}
+        live = with_grad(sc, ("light_pos", "tri_rgb"))
+        reset_counts()
+        grads = torch.autograd.grad(
+            (rt.render_image(live, cfg_d) * g_d).sum(),
+            [live.light_pos, live.tri_rgb])
+        torch.cuda.synchronize()
+        d["counts"] = counts()
+        want = ((1, 0, 1, 0, 0) if kname == "render_bwd_kernel"
+                else (0, 1, 0, 1, 1))
+        if d["counts"] != want or not all(torch.isfinite(t).all()
+                                          for t in grads):
+            raise AssertionError(f"{name}: render_image's gradient at 32 "
+                                 f"bounces: launch counts {d['counts']}, "
+                                 f"finite {[bool(torch.isfinite(t).all()) for t in grads]}")
+        deep[name] = d
+        print(f"deep bounces {name} {size}x{size} 32 bounces [{card}]: "
+              f"{d['hits']} bounce-step hits, {past} past step "
+              f"{render_bwd.REG_BOUNCES}; deep {kname} device "
+              f"{d['dev']:.4f} ms = {d['dev'] * 1e6 / d['hits']:.2f} ns per "
+              f"bounce-step hit (the register instance at 16 bounces on the "
+              f"same scene {d['dev_reg']:.4f} ms, {d['hits_reg']} hits, "
+              f"{d['dev_reg'] * 1e6 / d['hits_reg']:.2f} ns per hit); "
+              f"wrapper {d['ms']:.4f} ms; render_image gradient: launch "
+              f"counts {d['counts']}, finite", flush=True)
+
+    # 7g. the banded full-size gradient: dense_8192 at full_1024's config
+    # (1024x1024, 2x2 AA, 10 samples, 10 bounces: 2.95 GB of per-site rows,
+    # two bands at the 2 GiB limit) through render_image's backward, counts
+    # from 0; then on the same record two banded runs bit-equal, and the
+    # limit lowered to force four bands, within 1e-5
+    cfg_full = RenderConfig()
+    g_full = seeded_cotangent((1024, 1024, 3), 81)
+    bands_full = render_bwd._row_bands(1024, 1024, 4, 10, 2 * 16 + 21, True)
+    if len(bands_full) != 2:
+        raise AssertionError(f"dense_8192 at full_1024: bands {bands_full}")
+    live = with_grad(big)
+    reset_counts()
+    t_full = time.perf_counter()
+    img_full = rt.render_image(live, cfg_full)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t_full
+    grads_full = torch.autograd.grad((img_full * g_full).sum(),
+                                     [getattr(live, k) for k in GRAD_LEAVES])
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t_full - t_fwd
+    full_counts = counts()
+    if full_counts != (0, 1, 0, 2, 2) or not all(
+            torch.isfinite(t).all() for t in grads_full):
+        raise AssertionError(f"dense_8192 at full_1024: launch counts "
+                             f"{full_counts} (want one forward, two bands), "
+                             f"finite {[bool(torch.isfinite(t).all()) for t in grads_full]}")
+    del img_full, grads_full
+    res_full = render_fwd.render_fused_res(big, cfg_full, quads=None)[2]
+    banded = [render_bwd.render_replay_bwd(big, cfg_full, res_full, g_full)
+              for _ in range(2)]
+    limit = render_bwd.MAX_DLANE_BYTES
+    render_bwd.MAX_DLANE_BYTES = 4 * 16 * 11 * 4 * 1024 * 256
+    try:
+        four = render_bwd.render_replay_bwd(big, cfg_full, res_full, g_full)
+        bands_four = render_bwd._row_bands(1024, 1024, 4, 10, 2 * 16 + 21,
+                                           True)
+    finally:
+        render_bwd.MAX_DLANE_BYTES = limit
+    torch.cuda.synchronize()
+    if len(bands_four) != 4:
+        raise AssertionError(f"forced bands: {bands_four}")
+    for k in LEAVES:
+        if not torch.equal(getattr(banded[0], k), getattr(banded[1], k)):
+            raise AssertionError(f"two banded full-size gradients differ in "
+                                 f"{k}")
+    full_rel, _, full_leaf = grad_errors(four, banded[0])
+    if full_rel > 1e-5:
+        raise AssertionError(f"two bands vs four at full size: {full_leaf} "
+                             f"off by {full_rel:.3g} (budget 1e-5)")
+    full_bwd_ms = median_ms(lambda: render_bwd.render_replay_bwd(
+        big, cfg_full, res_full, g_full), 0, 2)
+    del res_full, banded, four
+    print(f"banded full-size gradient [{card}]: dense_8192 at full_1024's "
+          f"config, render_image forward {t_fwd * 1e3:.1f} ms and backward "
+          f"{t_full * 1e3:.1f} ms (host clock, first call), launch counts "
+          f"{full_counts}, bands {bands_full}, finite; two banded runs "
+          f"bit-equal; four bands {bands_four} vs two: worst {full_leaf} "
+          f"{full_rel:.3g} relative (budget 1e-5); backward wrapper "
+          f"{full_bwd_ms:.1f} ms (CUDA events, median of 2)", flush=True)
 
     # --- 8. the cut-over curve: forward device time of both kernels on
     # dense scenes of growing size, each kernel wherever its tables fit, as
@@ -1107,9 +1293,6 @@ def main() -> None:
     def big_segsum():
         return render_bwd.segment_sum(ids_big, rows_big, big.num_triangles)
 
-    def median_ms(fn, warmup, n):
-        return statistics.median(time_frames(fn, warmup, n))
-
     detect_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1137,7 +1320,7 @@ def main() -> None:
             lambda: rt.render_image(big, cfg_512, shadow_quads=q_big),
             "render_fwd_streamed_kernel", n=4),
         "bwd_dev": kernel_device_ms(big_bwd, "render_bwd_streamed_kernel"),
-        "segsum_dev": kernel_device_ms(big_bwd, "segment_sum_kernel"),
+        "segsum_dev": segment_sum_device_ms(big_bwd),
     }
     res_512 = render_fwd.render_fused_res(big, cfg_512, quads=q_big)[2]
     lg["fwd_work"] = fwd_work(cfg_big, big, q_big, res_big, False)
@@ -1192,8 +1375,7 @@ def main() -> None:
         "streamed_ms": median_ms(bwd600("streamed"), 2, 5),
         "streamed_dev": kernel_device_ms(bwd600("streamed"),
                                          "render_bwd_streamed_kernel"),
-        "streamed_segsum_dev": kernel_device_ms(bwd600("streamed"),
-                                                "segment_sum_kernel"),
+        "streamed_segsum_dev": segment_sum_device_ms(bwd600("streamed")),
         "streamed_work": bwd_work(cfg_big, d600, res6b, streamed=True),
         "plain": median_ms(lambda: render_bwd.render_replay_bwd_plain(
             d600, cfg_big, res6b, g6b), 1, 3),
@@ -1455,7 +1637,7 @@ def main() -> None:
     cfg_roof = RenderConfig(width=512, height=512, aa_x=2, aa_y=2,
                             shadow_samples=10, bounces=1)
     res_roof = render_fwd.render_fused_res(cornell, cfg_roof, quads=None)[2]
-    k2_res = flops.kernel_resources("render_bwd_kernel")
+    k2_res = flops.kernel_resources("render_bwd_kernel<false>")
     n_obj = cornell.num_triangles + cornell.num_spheres
     twins = {}
     for tname, tcfg, tres in (("512x512 aa4 s10 b1", cfg_roof, res_roof),
@@ -1564,7 +1746,7 @@ def main() -> None:
     probe_t = {"ms": median_ms(lambda: peak.census_probe(xp), 3, 5),
                "dev": flops.device_ms(lambda: peak.census_probe(xp), 50),
                "plain": median_ms(lambda: peak.census_probe_plain(xp), 1, 3)}
-    k2_sass = flops.sass_census("render_bwd_kernel")
+    k2_sass = flops.sass_census("render_bwd_kernel<false>")
     for tname, t in twins.items():
         tw, tcfg, tres = t["twin"], t["cfg"], t["res"]
         t["dev"] = kernel_device_ms(tw["run"], "bwd_twin_kernel")
@@ -1671,6 +1853,21 @@ def main() -> None:
               library_ms=lg["index_add"],
               at="dense_8192 128x128 aa4 s3 b2, 5 train_steps; plain version "
               "= index_add_"),
+        *(entry(f"{kn} deep instance (bounces > {render_bwd.REG_BOUNCES})",
+                src_file, f"{jax_bwd}:{line}", d["counts"][ci], d["abs"],
+                d["ms"], d["plain"], d["work"], d["dev"],
+                at=f"{name} {size}x{size} aa1 s2 b32, render_image's "
+                "gradient; plain_ms in row bands", max_rel_err=d["rel"],
+                bounce_step_hits=d["hits"], hits_past_16=d["past"],
+                ns_per_bounce_step_hit=d["dev"] * 1e6 / d["hits"],
+                register_instance_device_ms_16_bounces=d["dev_reg"],
+                register_instance_ns_per_hit=d["dev_reg"] * 1e6
+                / d["hits_reg"])
+          for kn, src_file, line, ci, name, size in (
+              ("K2", "render_bwd.cu", 366, 2, "mirror box", 512),
+              ("K3b", "render_bwd_streamed.cu", 381, 3,
+               "600-triangle mirror box", 256))
+          for d in (deep[name],)),
         entry("K4 nearest_tris (per-shard nearest hit)", "partial.cu",
               "uob_raytracer_tpu/kernels/partial.py:64", k4_launches, k4_err,
               pt["k4"], pt["k4_plain"], pt["k4_work"], pt["k4_dev"],

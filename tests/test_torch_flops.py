@@ -238,6 +238,7 @@ def test_sass_parser_counts_classes_and_loops():
 
 @pytest.mark.parametrize("name,frag", [
     ("render_bwd_kernel", "17render_bwd_kernelE"),
+    ("render_bwd_kernel<false>", "17render_bwd_kernelILb0EE"),
     ("peak_chain<2, 16>", "10peak_chainILi2ELi16EE"),
     (bwd_twin.symbol(64), "15bwd_twin_kernelILi64EE"),
     (peak.symbol("bwdmix", 32), "10peak_chainILi3ELi32EE"),
@@ -400,7 +401,7 @@ def test_structure_twin_on_card(cuda_device, twin_case):
     scene = trt.cornell_box(device=cuda_device)
     res = residuals_from_numpy(*arrays, device=cuda_device)
     targets = flops.bwd_twin_targets(scene, cfg, res)
-    k2 = flops.kernel_resources("render_bwd_kernel")["registers"]
+    k2 = flops.kernel_resources("render_bwd_kernel<false>")["registers"]
     twin = flops.build_bwd_structure_twin(scene, cfg, res, **targets,
                                           target_registers=k2)
     sums, img = twin["run"]()

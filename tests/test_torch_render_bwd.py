@@ -78,6 +78,62 @@ def test_plain_backward_matches_jax_kernel(bounces):
     np.testing.assert_allclose(primal.numpy(), np.asarray(img), atol=2e-5)
 
 
+# The mirror box: the Cornell box with its five walls (floor, left, right,
+# ceiling, back: triangles 0-9) mirrored, the blocks and spheres as they
+# are, seen from a camera inside the box at (0, -0.3, 0) that looks along
+# the x axis (yaw pi/2) through a 2x zoom (focal_length 4400). Rays bounce
+# between the side walls, and rows [46, 54) of the 128x128 frame hold
+# chains that end on a block after more than 16 bounce steps.
+MIRROR_WALLS = slice(0, 10)
+DEEP_KW = dict(width=128, height=128, aa_x=1, aa_y=1, shadow_samples=2,
+               focal_length=4400.0)
+DEEP_BAND = (46, 8)
+MIRROR_CAMERA = (0.0, -0.3, 0.0)
+
+
+def mirror_box(scene):
+    """The mirror box of either package's Cornell box."""
+    if isinstance(scene, trt.Scene):
+        mat = scene.tri_mat.clone()
+        mat[MIRROR_WALLS] = trt.scene.MAT_MIRROR
+        return dataclasses.replace(
+            scene, tri_mat=mat, camera_pos=torch.tensor(
+                MIRROR_CAMERA, device=mat.device),
+            yaw=torch.tensor(np.pi / 2, dtype=torch.float32,
+                             device=mat.device))
+    mat = np.asarray(scene.tri_mat).copy()
+    mat[MIRROR_WALLS] = jrt.scene.MAT_MIRROR
+    return dataclasses.replace(
+        scene, tri_mat=jnp.asarray(mat),
+        camera_pos=jnp.asarray(MIRROR_CAMERA, jnp.float32),
+        yaw=jnp.float32(np.pi / 2))
+
+
+def test_plain_backward_matches_jax_kernel_past_16_bounces():
+    """render_replay_bwd_plain at 20 bounces against the JAX backward kernel
+    (interpret mode) on the JAX forward kernel's record of the mirror box's
+    band, whose chains run past the kernel's in-register depth."""
+    jsc, cfg_j = mirror_box(jrt.cornell_box()), jrt.RenderConfig(
+        bounces=20, **DEEP_KW)
+    row0, rows = DEEP_BAND
+    img, _, jres = j_fused_res(jsc, cfg_j, interpret=True, row0=row0,
+                               rows=rows)
+    deep = np.asarray(jres.bounce_id)[tbwd.REG_BOUNCES:]
+    # chains past the in-register depth that end on a (diffuse) block
+    assert ((deep >= 10) & (deep < 26)).any()
+    g = np.random.RandomState(20).standard_normal(img.shape).astype(np.float32)
+    ref = j_replay_bwd(jsc, cfg_j, jres, jnp.asarray(g), row0=row0,
+                       rows=rows, interpret=True)
+    tsc = mirror_box(trt.cornell_box(device="cpu"))
+    res = treplay.residuals_from_numpy(*(np.asarray(x) for x in jres), "cpu")
+    got = tbwd.render_replay_bwd_plain(tsc, trt.RenderConfig(
+        bounces=20, **DEEP_KW), res, torch.from_numpy(g), row0, rows)
+    for k in LEAVES:
+        a, b = np.asarray(getattr(ref, k)), getattr(got, k).numpy()
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-4 * max(np.abs(a).max(), 1.0), k
+
+
 def test_wrapper_on_cpu_runs_plain_version():
     """A CPU scene takes the plain version: no launch, the same gradient;
     other devices are refused."""
@@ -127,7 +183,7 @@ def test_launch_params_and_budget():
         np.float32(cfg.effective_focal), np.float32(1e-4), np.float32(1.52),
         np.float32(1.0), np.float32(4 * np.pi)]
     assert tbwd.shared_bytes(28) < 48 * 1024
-    assert cfg.bounces <= tbwd.MAX_BOUNCES
+    assert cfg.bounces <= tbwd.REG_BOUNCES
 
 
 # --------------------------------------------------------------------------
@@ -279,9 +335,10 @@ def test_cli_without_device_cpu_does_not_render_on_cpu(tmp_path, capsys):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the JAX
-    package."""
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    """No module of the port, and neither chip_smoke.py nor chip_timing.py,
+    imports jax or the JAX package."""
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "chip_timing.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "uob_raytracer_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
@@ -370,6 +427,63 @@ def test_function_on_card_launches_both_kernels(cuda_device):
             continue
         assert ((ref[k] - got[k]).abs().max()
                 <= 2e-3 * (ref[k].abs().max() + 1e-12)), k
-    deep = trt.RenderConfig(width=16, height=8, bounces=tbwd.MAX_BOUNCES + 1)
-    with pytest.raises(ValueError, match="bounces"):
-        trt.render_image(sc, deep).mean().backward()
+    # past the in-register depth the deep instance runs: the same gradient
+    deep = trt.RenderConfig(width=16, height=8, bounces=tbwd.REG_BOUNCES + 1)
+    got = _grads(trt.render_image(sc, deep).mean(), sc)
+    assert tbwd.LAUNCHES == b0 + 2
+    ref = _grads(trt.render_image(sc, deep, backend="torch").mean(), sc)
+    for k in LEAVES:
+        if ref[k] is None:
+            assert not got[k].any()
+            continue
+        assert ((ref[k] - got[k]).abs().max()
+                <= 2e-3 * (ref[k].abs().max() + 1e-12)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [17, 20, 32])
+def test_deep_backward_kernel_on_card(cuda_device, bounces):
+    """The whole-table kernel past its in-register depth (the deep
+    instance, its chain in a device buffer) on the mirror box's band,
+    against the plain version; two runs bit-equal."""
+    sc = mirror_box(trt.cornell_box(device=cuda_device))
+    cfg = trt.RenderConfig(bounces=bounces, **DEEP_KW)
+    row0, rows = DEEP_BAND
+    _, _, res = tfwd.render_fused_res(sc, cfg, row0, rows)
+    assert (res.bounce_id[tbwd.REG_BOUNCES:] >= 0).any()
+    g = torch.from_numpy(np.random.RandomState(bounces).standard_normal(
+        (rows, cfg.width, 3)).astype(np.float32)).to(cuda_device)
+    before = tbwd.LAUNCHES
+    got, primal = tbwd.render_replay_bwd(sc, cfg, res, g, row0, rows,
+                                         return_primal=True)
+    again = tbwd.render_replay_bwd(sc, cfg, res, g, row0, rows)
+    torch.cuda.synchronize()
+    assert tbwd.LAUNCHES == before + 2
+    ref, ref_primal = tbwd.render_replay_bwd_plain(sc, cfg, res, g, row0,
+                                                   rows, return_primal=True)
+    assert _leafwise(ref, got) <= 1e-4
+    assert torch.allclose(primal, ref_primal, atol=1e-4)
+    assert all(torch.equal(getattr(got, k), getattr(again, k)) for k in LEAVES)
+
+
+@pytest.mark.cuda
+def test_backward_in_row_bands_on_card(cuda_device, monkeypatch):
+    """Past MAX_PARTIAL_BYTES the whole-table backward takes the frame in
+    row bands, one launch each: the same gradient within 1e-5, the same
+    replayed radiance bit for bit, and two banded runs bit-equal."""
+    sc = trt.cornell_box(device=cuda_device)
+    cfg = trt.RenderConfig(width=96, height=20, shadow_samples=3, bounces=2)
+    _, _, res = tfwd.render_fused_res(sc, cfg)
+    g = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (20, 96, 3)).astype(np.float32)).to(cuda_device)
+    one, p_one = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    cols = (sc.num_triangles + sc.num_spheres) * 16 + 21
+    monkeypatch.setattr(tbwd, "MAX_PARTIAL_BYTES", 4 * 3 * cols)  # 4 rows
+    before = tbwd.LAUNCHES
+    two, p_two = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    three = tbwd.render_replay_bwd(sc, cfg, res, g)
+    torch.cuda.synchronize()
+    assert tbwd.LAUNCHES == before + 10
+    assert _leafwise(one, two) <= 1e-5
+    assert torch.equal(p_one, p_two)
+    assert all(torch.equal(getattr(two, k), getattr(three, k)) for k in LEAVES)

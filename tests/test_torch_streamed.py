@@ -46,6 +46,7 @@ from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads as tdetect
 from uob_raytracer_tpu_torch.scene import Scene, scene_from_numpy
 from conftest import assert_images_match
 from test_pallas import _dense_scene as j_dense_scene
+from test_torch_render_bwd import mirror_box
 
 LEAVES = tuple(f.name for f in dataclasses.fields(Scene))
 
@@ -317,6 +318,59 @@ def test_streamed_table_cotangents_match_whole_table():
     assert torch.equal(dcam, torch.full((21,), float(blocks)))
 
 
+# (rows, W, A, B, partial columns, streamed): dense_8192 at full_1024's
+# config (2.95 GB of per-site rows: two bands), full_1024 whole-table (one
+# band), 32 bounces whole-table and streamed (the deep chain), a small
+# frame, one row, no rows
+BAND_CASES = [(1024, 1024, 4, 10, 2 * 16 + 21, True),
+              (1024, 1024, 4, 10, 28 * 16 + 21, False),
+              (1024, 1024, 4, 32, 28 * 16 + 21, False),
+              (512, 512, 1, 32, 2 * 16 + 21, True),
+              (13, 40, 2, 2, 2 * 16 + 21, True),
+              (1, 8, 1, 0, 21, True),
+              (0, 8, 1, 0, 21, False)]
+
+
+@pytest.mark.parametrize("case", BAND_CASES)
+@pytest.mark.parametrize("scale", [1, 64])
+def test_row_bands_cover_the_frame_within_the_limits(case, scale,
+                                                     monkeypatch):
+    """The bands cover [0, rows) in order, each within every byte limit,
+    as few as there can be (the tallest band that fits, found row by row,
+    gives the count), all but the last of one height. ``scale`` lowers the
+    limits to force many bands."""
+    for name in ("MAX_DLANE_BYTES", "MAX_PARTIAL_BYTES", "MAX_CHAIN_BYTES"):
+        monkeypatch.setattr(tbwd, name, getattr(tbwd, name) // scale)
+    rows, W, A, B, cols, streamed = case
+    bands = tbwd._row_bands(rows, W, A, B, cols, streamed)
+    assert [o for o, _ in bands] == list(
+        np.cumsum([0] + [n for _, n in bands])[:-1])
+    assert sum(n for _, n in bands) == rows and all(n > 0 for _, n in bands)
+    for _, n in bands:
+        for b, lim in tbwd.band_bytes(n, W, A, B, cols, streamed).values():
+            assert b <= lim
+    fits = [n for n in range(1, rows + 1) if all(
+        b <= lim for b, lim in tbwd.band_bytes(n, W, A, B, cols,
+                                               streamed).values())]
+    assert len(bands) == (-(-rows // max(fits)) if rows else 0)
+    assert len({n for _, n in bands[:-1]}) <= 1
+    assert "chain" in tbwd.band_bytes(1, W, A, B, cols, streamed) or B <= 16
+    if case == BAND_CASES[0] and scale == 1:
+        assert bands == [(0, 512), (512, 512)]
+
+
+@pytest.mark.parametrize("limit", ["MAX_DLANE_BYTES", "MAX_CHAIN_BYTES"])
+def test_row_bands_refuse_a_row_past_the_limit(limit, monkeypatch):
+    """One row that passes a limit cannot be banded: the planner raises and
+    names the buffer."""
+    W, A, B = 64, 4, 20
+    one = tbwd.band_bytes(1, W, A, B, 21, True)
+    key = "dlane" if limit == "MAX_DLANE_BYTES" else "chain"
+    monkeypatch.setattr(tbwd, limit, one[key][0] - 1)
+    with pytest.raises(ValueError, match=key):
+        tbwd._row_bands(8, W, A, B, 21, True)
+
+
 def test_cut_over_rule():
     """One function routes forward and backward, from the scene's size
     alone: whole-table up to STREAM_ABOVE_TRIANGLES while both whole-table
@@ -502,20 +556,101 @@ def test_segment_sum_kernel_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_streamed_backward_refuses_an_oversized_dlane(cuda_device, monkeypatch):
-    """Above MAX_DLANE_BYTES the wrapper raises and names row bands; a band
-    that fits runs."""
+    """Above MAX_DLANE_BYTES the wrapper no longer refuses: it takes the
+    frame in row bands (one launch and one segmented sum each), within 1e-5
+    of one launch, the replayed radiance bit for bit, two banded runs
+    bit-equal; a band asked for by the caller runs as before."""
     sc = scene_from_numpy(dense_leaves(600), cuda_device)
     cfg = trt.RenderConfig(width=96, height=20, shadow_samples=2, bounces=1)
     _, _, res = tfwd.render_fused_res(sc, cfg)
-    g = torch.ones((20, 96, 3), device=cuda_device)
+    g = torch.from_numpy(np.random.RandomState(6).standard_normal(
+        (20, 96, 3)).astype(np.float32)).to(cuda_device)
+    one, p_one = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
     sites = 2 * cfg.aa_rays * 20 * 96
     monkeypatch.setattr(tbwd, "MAX_DLANE_BYTES", 64 * sites - 1)
-    with pytest.raises(ValueError, match="row bands"):
-        tbwd.render_replay_bwd(sc, cfg, res, g)
+    before = (tbwd.STREAMED_LAUNCHES, tbwd.SEGMENT_SUM_LAUNCHES)
+    two, p_two = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    three = tbwd.render_replay_bwd(sc, cfg, res, g)
+    torch.cuda.synchronize()
+    assert (tbwd.STREAMED_LAUNCHES, tbwd.SEGMENT_SUM_LAUNCHES) == (
+        before[0] + 4, before[1] + 4)                 # two bands a call
+    assert _leafwise(one, two) <= 1e-5
+    assert torch.equal(p_one, p_two)
+    assert all(torch.equal(getattr(two, k), getattr(three, k)) for k in LEAVES)
     band = treplay.Residuals(*(t[..., 4:12, :].contiguous() for t in res))
     bar = tbwd.render_replay_bwd(sc, cfg, band, g[4:12].contiguous(),
                                  row0=4, rows=8)
     assert torch.isfinite(bar.tri_v0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [17, 20, 32])
+def test_streamed_deep_backward_kernel_on_card(cuda_device, bounces):
+    """The streamed backward past its in-register depth (the deep instance)
+    at 600 triangles (the dense scene as the mirror box), rows whose chains
+    run past 16 steps, against the plain version; two runs bit-equal."""
+    sc = mirror_box(scene_from_numpy(dense_leaves(600), cuda_device))
+    cfg = trt.RenderConfig(width=128, height=128, aa_x=1, aa_y=1,
+                           shadow_samples=2, bounces=bounces,
+                           focal_length=4400.0)
+    _, _, res = tfwd.render_fused_res(sc, cfg, 48, 8)
+    assert (res.bounce_id[tbwd.REG_BOUNCES:] >= 0).any()
+    g = torch.from_numpy(np.random.RandomState(bounces).standard_normal(
+        (8, 128, 3)).astype(np.float32)).to(cuda_device)
+    before = tbwd.STREAMED_LAUNCHES
+    got = tbwd.render_replay_bwd(sc, cfg, res, g, 48, 8)
+    again = tbwd.render_replay_bwd(sc, cfg, res, g, 48, 8)
+    torch.cuda.synchronize()
+    assert tbwd.STREAMED_LAUNCHES == before + 2
+    ref = tbwd.render_replay_bwd_plain(sc, cfg, res, g, 48, 8)
+    assert _leafwise(ref, got) <= 1e-4
+    assert all(torch.equal(getattr(got, k), getattr(again, k)) for k in LEAVES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aa", [(1, 1), (2, 2), (3, 3)])
+def test_streamed_forward_per_ray_equals_whole_table_on_card(cuda_device,
+                                                             aa):
+    """K3f with one thread per AA ray: A in {1, 4, 9}, on a frame whose
+    last block is ragged (a row band of 37 columns), bit for bit the
+    whole-table kernel's image, pack and record."""
+    sc = scene_from_numpy(dense_leaves(300), cuda_device)
+    cfg = trt.RenderConfig(width=37, height=11, aa_x=aa[0], aa_y=aa[1],
+                           shadow_samples=3, bounces=3)
+    for quads in (None, tdetect(sc)):
+        for band in ((None, None), (2, 7)):
+            a = tfwd.render_fused_res(sc, cfg, *band, quads=quads,
+                                      _kernel="whole")
+            b = tfwd.render_fused_res(sc, cfg, *band, quads=quads,
+                                      _kernel="streamed")
+            torch.cuda.synchronize()
+            assert torch.equal(a[0], b[0])
+            assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+            assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["equal", "permuted"])
+def test_segment_sum_long_runs_on_card(cuda_device, case):
+    """The two-pass segmented sum on a run of 100,000 equal ids (split over
+    warps in tiles) and on a random permutation of mixed runs: within 1e-6
+    of the sums' magnitude of their float64 value (what index_add_, the
+    plain version, adds in float32), two runs bit-equal."""
+    rs = np.random.RandomState(7)
+    n, n_seg = 100_000, 50
+    ids = (np.full(n, 3, np.int32) if case == "equal"
+           else rs.randint(-1, n_seg + 1, n).astype(np.int32)[rs.permutation(n)])
+    rows = rs.standard_normal((n, 16)).astype(np.float32)
+    keep = (ids >= 0) & (ids < n_seg)
+    ref = np.zeros((n_seg, 16))
+    np.add.at(ref, ids[keep], rows[keep].astype(np.float64))
+    ids_c = torch.from_numpy(ids).to(cuda_device)
+    rows_c = torch.from_numpy(rows).to(cuda_device)
+    a = tbwd.segment_sum(ids_c, rows_c, n_seg)
+    b = tbwd.segment_sum(ids_c, rows_c, n_seg)
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
 
 
 @pytest.mark.cuda

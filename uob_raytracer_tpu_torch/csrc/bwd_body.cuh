@@ -7,9 +7,13 @@
 // ragged edge included (they carry no ray but take part in the warp's
 // shuffles).
 //
-// In scope where it is included: Params P; const float* cam (the staged
-// camera row); the kernel's g_img, pid, lit_in, bid and img pointers; and
-// three macros, undefined again after the include:
+// In scope where it is included: the kernel's template parameter bool
+// Deep (false: the register instance, whose bounce chain is a per-thread
+// array of kRegBounces steps; true: the deep instance, whose chain is the
+// device buffer float* chain of kChainFloats * bounces * the grid's
+// threads, laid out as DeepSteps says); Params P; const float* cam (the
+// staged camera row); the kernel's g_img, pid, lit_in, bid, img and chain
+// pointers; and three macros, undefined again after the include:
 //   REPLAY_LOAD_ROW(id)              the Row of object id (-1: the miss row)
 //   REPLAY_SCATTER(site, a, id, g)   adds RowGrad g to object id's cotangent
 //                                    for site (0 primary, 1 + k bounce step
@@ -44,8 +48,13 @@
 #pragma unroll
   for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
   V3 img_acc = zero3();
-  float saved[kMaxBounces][12];
-  int saved_id[kMaxBounces];
+  ChainSteps<Deep> saved;
+  ChainIds<Deep> saved_id;
+  if constexpr (Deep) {
+    const size_t stride = (size_t)gridDim.x * blockDim.x;
+    saved = DeepSteps{chain + p, stride};
+    saved_id = DeepIds{reinterpret_cast<int*>(chain + kStepFloats * stride) + p, stride};
+  }
 
   for (int a = 0; a < A; ++a) {
     const int id0 = in_img ? pid[a * n_pix + p] : -1;
@@ -77,7 +86,7 @@
         const Step s = step_geometry(P, cur_d, cur_pos, cur_nrm, cur_mat, medium);
         if (s.dead) break;  // the step changes nothing and retires the ray
         const int idk = bid[((size_t)n_exec * A + a) * n_pix + p];
-        float* sv = saved[n_exec];
+        auto sv = saved[n_exec];
         sv[0] = cur_d.x, sv[1] = cur_d.y, sv[2] = cur_d.z;
         sv[3] = cur_pos.x, sv[4] = cur_pos.y, sv[5] = cur_pos.z;
         sv[6] = cur_nrm.x, sv[7] = cur_nrm.y, sv[8] = cur_nrm.z;
@@ -167,7 +176,7 @@
       RowGrad gr = zero_grad();
       int sid = -1;
       if (k < n_exec) {
-        const float* sv = saved[k];
+        const auto sv = saved[k];
         const V3 cur_d = make(sv[0], sv[1], sv[2]), cur_pos = make(sv[3], sv[4], sv[5]);
         const V3 cur_nrm = make(sv[6], sv[7], sv[8]);
         const float w_prev = sv[11];

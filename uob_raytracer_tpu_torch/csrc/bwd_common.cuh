@@ -14,6 +14,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "vec3.cuh"
 
@@ -26,7 +27,13 @@ constexpr int kObjCols = 17;   // staged row: v0 e1 e2 n rgb mat r2
 constexpr int kGradCols = 16;  // cotangent row: v0 e1 e2 n rgb r2
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBounces = 16;
+// The bounce chain a ray keeps for its reverse sweep: 12 floats and an id
+// per step. Up to kRegBounces steps it lives in a per-thread array (the
+// register instance, the default); deeper configs take the deep instance,
+// whose chain lives in a device buffer (DeepSteps, DeepIds).
+constexpr int kRegBounces = 16;
+constexpr int kStepFloats = 12;
+constexpr int kChainFloats = kStepFloats + 1;  // a deep step: the floats and the id
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -86,6 +93,38 @@ inline Params make_params(const int* ip, const float* fp) {
   P.pi4 = fp[6];
   return P;
 }
+
+// The deep instance's chain: step k of this thread in a device buffer laid
+// out thread-major, float j of step k at ((k * 13 + j) * stride + t) and
+// its id at ((k * 13 + 12) * stride + t), t the thread's index in the grid
+// and stride the grid's thread count, so that a warp's step-k stores and
+// loads coalesce. saved[k][j] and saved_id[k] read as they do on the
+// per-thread arrays of the register instance.
+struct DeepRow {
+  float* p;
+  size_t stride;
+  __device__ __forceinline__ float& operator[](int j) const { return p[(size_t)j * stride]; }
+};
+struct DeepSteps {
+  float* p;  // the buffer at this thread's index
+  size_t stride;
+  __device__ __forceinline__ DeepRow operator[](int k) const {
+    return DeepRow{p + (size_t)k * kChainFloats * stride, stride};
+  }
+};
+struct DeepIds {
+  int* p;  // the buffer's id column of step 0 at this thread's index
+  size_t stride;
+  __device__ __forceinline__ int& operator[](int k) const {
+    return p[(size_t)k * kChainFloats * stride];
+  }
+};
+
+// The chain storage of an instance: the per-thread arrays, or the buffer.
+template <bool Deep>
+using ChainSteps = std::conditional_t<Deep, DeepSteps, float[kRegBounces][kStepFloats]>;
+template <bool Deep>
+using ChainIds = std::conditional_t<Deep, DeepIds, int[kRegBounces]>;
 
 // The row that stands for a miss (id -1).
 __device__ __forceinline__ Row miss_row() {

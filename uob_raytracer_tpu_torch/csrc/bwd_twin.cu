@@ -18,7 +18,7 @@
 //   object's material code and decides, as in K2, whether a ray's chain
 //   goes on (mat <= 0); the other columns are calibration values;
 // - the forward sweep over the bounce steps the record says the ray ran,
-//   storing 12 floats a step into a per-thread array of kMaxBounces;
+//   storing 12 floats a step into a per-thread array of kRegBounces;
 // - the reverse sweep to the warp's deepest chain, reading them back;
 // - the warp's 16-column shuffle butterfly per object it hit, into per-warp
 //   accumulators in shared memory (warp_scatter of bwd_common.cuh, K2's
@@ -198,8 +198,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
   float img_acc[3] = {0.0f, 0.0f, 0.0f};
-  float saved[kMaxBounces][12];
-  int saved_id[kMaxBounces];
+  float saved[kRegBounces][12];
+  int saved_id[kRegBounces];
 
   for (int a = 0; a < A; ++a) {
     const int id0 = in_img ? pid[a * n_pix + p] : -1;
@@ -390,7 +390,7 @@ extern "C" int bwd_twin_launch(int n_pool, const float* table, const float* g, c
     T.divs[i] = (unsigned)sizing[3 + 2 * kTwinHalf + i];
     if (T.slots[i] < 0 || T.slots[i] > kTwinSlots) return (int)cudaErrorInvalidValue;
   }
-  if (fn == nullptr || D.bounces > kMaxBounces || T.n_half > kTwinHalf ||
+  if (fn == nullptr || D.bounces > kRegBounces || T.n_half > kTwinHalf ||
       T.n_second > kTwinHalf || T.n_half < 0 || T.n_second < 0 || T.n_step < 0)
     return (int)cudaErrorInvalidValue;
   const long long n_pix = (long long)D.rows * D.width;

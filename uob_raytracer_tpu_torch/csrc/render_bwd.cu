@@ -26,8 +26,12 @@
 //   adjoint needs (cur_d, cur_pos, cur_nrm, cur_mat, medium, weight) in
 //   per-thread storage, the shading adjoint, the reverse sweep, and the
 //   adjoint of the primary hit and the ray generation. The TPU kernel's
-//   VMEM chain scratch becomes that per-thread array; its depth is a
-//   compile-time cap (kMaxBounces) that the wrapper enforces.
+//   VMEM chain scratch, sized from the config's bounces, becomes that
+//   per-thread array in the register instance (Deep = false), sized at
+//   compile time to kRegBounces steps; a deeper config launches the deep
+//   instance (Deep = true), whose chain lives in a device buffer the
+//   wrapper allocates (bwd_common.cuh: DeepSteps), so any bounce count
+//   runs and the default instance keeps its registers.
 // - The object rows (28 x 17 floats on the Cornell box) are staged into
 //   shared memory as one unified table, so a gather is one indexed read:
 //   the TPU kernel's presence-bit gather loop and its de Bruijn LUT are not
@@ -91,12 +95,13 @@ struct WholeTables {
   }
 };
 
+template <bool Deep>
 __global__ void __launch_bounds__(kThreads)
     render_bwd_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                       const float* __restrict__ g_cam, const float* __restrict__ g_img,
                       const int* __restrict__ pid, const float* __restrict__ lit_in,
                       const int* __restrict__ bid, float* __restrict__ partial,
-                      float* __restrict__ img, Params P) {
+                      float* __restrict__ img, float* __restrict__ chain, Params P) {
   extern __shared__ float smem[];
   const int n_obj = P.n_tri + P.n_sph;
   const int acc_cols = n_obj * kGradCols + kCamCols;
@@ -151,26 +156,32 @@ __global__ void __launch_bounds__(kThreads)
 // g [rows, W, 3]; pid, lit [A, rows, W]; bid [bounces, A, rows, W] (may be
 // null when bounces == 0); partial [ceil(rows*W / 128), (n_tri+n_sph)*16 + 21]
 // is overwritten; img [rows, W, 3] receives the replayed radiance when
-// want_img is set (else it may be null). Returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue when bounces exceeds the kernel's cap.
+// want_img is set (else it may be null). Up to kRegBounces bounces the
+// register instance runs and chain may be null; a deeper config runs the
+// deep instance, which needs chain: kChainFloats * bounces * 128 *
+// ceil(rows*W / 128) floats of scratch (contents on entry do not matter).
+// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue when a
+// deep config comes without its chain.
 extern "C" int render_bwd_launch(const float* tri, const float* sph, const float* cam,
                                  const float* g, const int* pid, const float* lit,
-                                 const int* bid, float* partial, float* img, const int* ip,
-                                 const float* fp, void* stream) {
+                                 const int* bid, float* partial, float* img, float* chain,
+                                 const int* ip, const float* fp, void* stream) {
   const Params P = make_params(ip, fp);
-  if (P.bounces > kMaxBounces) return (int)cudaErrorInvalidValue;
+  const bool deep = P.bounces > kRegBounces;
+  if (deep && chain == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
   const size_t n_obj = (size_t)P.n_tri + P.n_sph;
   const size_t smem =
       sizeof(float) * (n_obj * kObjCols + kCamCols + kWarps * (n_obj * kGradCols + kCamCols));
+  const auto kernel = deep ? render_bwd_kernel<true> : render_bwd_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
-  render_bwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit,
-                                                                       bid, partial, img, P);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid,
+                                                          partial, img, chain, P);
   return (int)cudaGetLastError();
 }

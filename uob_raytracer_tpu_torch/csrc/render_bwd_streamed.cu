@@ -25,12 +25,14 @@
 //   in the order of the whole-table kernel, so on a scene both kernels can
 //   run the sphere and camera cotangents come out bit-equal.
 //
-// The per-site rows are then summed per triangle by segment_sum_kernel,
+// The per-site rows are then summed per triangle by the segmented sum,
 // below: the wrapper sorts the sites' triangle ids once (a stable sort, so
-// equal ids keep their site order) and gives each triangle's run of sorted
-// positions to one warp, which adds the run's rows in a fixed order. No
-// float atomics anywhere: two runs on the same inputs give bit-equal
-// gradients, which index_add_ / scatter_add_ on the card do not.
+// equal ids keep their site order), and two passes add each triangle's run
+// of sorted positions in a fixed order, a long run split over warps in
+// aligned tiles of kSegTile positions (a back wall hit by tens of
+// thousands of sites is not one warp's work). No float atomics anywhere:
+// two runs on the same inputs give bit-equal gradients, which index_add_ /
+// scatter_add_ on the card do not.
 //
 // What bounds it on this card: the replay's FP32 work as in render_bwd.cu,
 // plus 64 B of stores per triangle site; the segmented sum is bound by the
@@ -88,12 +90,16 @@ struct StreamedTables {
   }
 };
 
+// Deep: the register or the deep instance of the bounce chain, as the
+// whole-table kernel (render_bwd.cu).
+template <bool Deep>
 __global__ void __launch_bounds__(kThreads)
     render_bwd_streamed_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                                const float* __restrict__ g_cam, const float* __restrict__ g_img,
                                const int* __restrict__ pid, const float* __restrict__ lit_in,
                                const int* __restrict__ bid, float* __restrict__ dlane,
-                               float* __restrict__ partial, float* __restrict__ img, Params P) {
+                               float* __restrict__ partial, float* __restrict__ img,
+                               float* __restrict__ chain, Params P) {
   extern __shared__ float smem[];
   const int acc_cols = P.n_sph * kGradCols + kCamCols;
   float* cam = smem;
@@ -132,25 +138,90 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[t] = the sum of rows[order[j]] over j in [bounds[t], bounds[t + 1]),
-// for t < n_seg: one warp per segment. Lane l owns column l & 15 and every
-// second row of the run (l >> 4), adds them front to back, and the two
-// halves meet in one shuffle: the order of the additions depends on the
-// run alone.
+// The segmented sum: out[t] = the sum of rows[order[j]] over the sorted
+// positions j in [bounds[t], bounds[t + 1]), for t < n_seg. Long runs are
+// split over warps in two passes, so that no warp's work grows with a
+// run's length beyond kSegTile rows plus one partial per tile:
+// - segment_sum_tiles_kernel, one warp per aligned tile of kSegTile sorted
+//   positions that lies wholly inside one run of an id in [0, n_seg): the
+//   tile's rows summed into tiles[i];
+// - segment_sum_runs_kernel, one warp per id: the positions of its run
+//   before its first whole tile, then the partials of its whole tiles in
+//   tile order, then the positions after its last whole tile.
+// In both, lane l sums the float4 of columns 4 (l & 3) .. 4 (l & 3) + 3 of
+// every eighth position (or tile) from l >> 2 on, front to back, and the
+// eight groups meet in a fixed butterfly. The order of every addition
+// depends on the sorted positions alone, so two runs give the same bits;
+// no float atomics anywhere.
+constexpr int kSegTile = 128;
+
+// The sum of the eight lane groups' float4 (lanes l, l ^ 4, l ^ 8, ...).
+__device__ __forceinline__ float4 groups_sum(float4 s) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    s.x += __shfl_xor_sync(kFull, s.x, off);
+    s.y += __shfl_xor_sync(kFull, s.y, off);
+    s.z += __shfl_xor_sync(kFull, s.z, off);
+    s.w += __shfl_xor_sync(kFull, s.w, off);
+  }
+  return s;
+}
+
+__device__ __forceinline__ void add4(float4& s, float4 v) {
+  s.x += v.x;
+  s.y += v.y;
+  s.z += v.z;
+  s.w += v.w;
+}
+
+// Lane group g's sum over the positions [j0 + g, j1) in steps of 8: the
+// float4 q of each position's row.
+__device__ __forceinline__ void gather_rows(float4& s, const float4* __restrict__ rows,
+                                            const long long* __restrict__ order, long long j0,
+                                            long long j1, int g, int q) {
+  // unrolled so that several gathers are in flight; the adds keep their order
+#pragma unroll 4
+  for (long long j = j0 + g; j < j1; j += 8) add4(s, rows[order[j] * 4 + q]);
+}
+
 __global__ void __launch_bounds__(kThreads)
-    segment_sum_kernel(const float* __restrict__ rows, const long long* __restrict__ order,
-                       const long long* __restrict__ bounds, float* __restrict__ out, int n_seg) {
+    segment_sum_tiles_kernel(const float4* __restrict__ rows, const long long* __restrict__ order,
+                             const int* __restrict__ sorted_ids, float4* __restrict__ tiles,
+                             long long n, int n_seg) {
+  const long long i = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long j0 = i * kSegTile;
+  if (j0 + kSegTile > n) return;  // not a whole tile; whole warps leave together
+  const int id = sorted_ids[j0];
+  if (id != sorted_ids[j0 + kSegTile - 1] || id < 0 || id >= n_seg) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  gather_rows(s, rows, order, j0, j0 + kSegTile, g, q);
+  s = groups_sum(s);
+  if (g == 0) tiles[i * 4 + q] = s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_runs_kernel(const float4* __restrict__ rows, const long long* __restrict__ order,
+                            const long long* __restrict__ bounds,
+                            const float4* __restrict__ tiles, float4* __restrict__ out,
+                            int n_seg) {
   const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (t >= n_seg) return;  // whole warps leave together
-  const int lane = threadIdx.x & 31, c = lane & 15;
-  const long long end = bounds[t + 1];
-  float s = 0.0f;
-  // unrolled so that several gathers are in flight; the adds keep their order
-#pragma unroll 8
-  for (long long j = bounds[t] + (lane >> 4); j < end; j += 2)
-    s += rows[order[j] * kGradCols + c];
-  s += __shfl_xor_sync(kFull, s, 16);
-  if (lane < kGradCols) out[(size_t)t * kGradCols + c] = s;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const long long b = bounds[t], e = bounds[t + 1];
+  // the whole tiles of the run: [i0, i1)
+  const long long i0 = (b + kSegTile - 1) / kSegTile, i1 = e / kSegTile;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i0 >= i1) {
+    gather_rows(s, rows, order, b, e, g, q);
+  } else {
+    gather_rows(s, rows, order, b, i0 * kSegTile, g, q);
+#pragma unroll 4
+    for (long long i = i0 + g; i < i1; i += 8) add4(s, tiles[i * 4 + q]);
+    gather_rows(s, rows, order, i1 * kSegTile, e, g, q);
+  }
+  s = groups_sum(s);
+  if (g == 0) out[(size_t)t * 4 + q] = s;
 }
 
 }  // namespace
@@ -158,38 +229,54 @@ __global__ void __launch_bounds__(kThreads)
 // Launches one streamed backward pass on `stream`; ip, fp, g, pid, lit, bid
 // and img as render_bwd_launch (render_bwd.cu). dlane [(1 + bounces) * A *
 // rows * W, 16] must arrive zeroed; partial [ceil(rows*W / 128), n_sph*16 +
-// 21] is overwritten. Returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue when bounces exceeds the kernel's cap.
+// 21] is overwritten; chain as render_bwd_launch. Returns cudaGetLastError()
+// of the launch, or cudaErrorInvalidValue when a deep config comes without
+// its chain.
 extern "C" int render_bwd_streamed_launch(const float* tri, const float* sph, const float* cam,
                                           const float* g, const int* pid, const float* lit,
                                           const int* bid, float* dlane, float* partial,
-                                          float* img, const int* ip, const float* fp,
-                                          void* stream) {
+                                          float* img, float* chain, const int* ip,
+                                          const float* fp, void* stream) {
   const Params P = make_params(ip, fp);
-  if (P.bounces > kMaxBounces) return (int)cudaErrorInvalidValue;
+  const bool deep = P.bounces > kRegBounces;
+  if (deep && chain == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
   const size_t smem =
       sizeof(float) * (kCamCols + kWarps * ((size_t)P.n_sph * kGradCols + kCamCols));
+  const auto kernel = deep ? render_bwd_streamed_kernel<true> : render_bwd_streamed_kernel<false>;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        render_bwd_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
-  render_bwd_streamed_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      tri, sph, cam, g, pid, lit, bid, dlane, partial, img, P);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid, dlane,
+                                                          partial, img, chain, P);
   return (int)cudaGetLastError();
 }
 
-// Launches the segmented sum on `stream`: rows [n_rows, 16] float32, order
-// (int64 row indices, sorted by segment) and bounds [n_seg + 1] (int64
-// positions in order) on the device; out [n_seg, 16] is overwritten.
+// Launches the segmented sum on `stream`, both passes: rows [n, 16]
+// float32 (16-byte aligned), order (int64 row indices, sorted by id),
+// sorted_ids [n] (int32, the ids in that order) and bounds [n_seg + 1]
+// (int64 positions in order) on the device; tiles [ceil(n / kSegTile), 16]
+// is scratch; out [n_seg, 16] is overwritten.
 extern "C" int segment_sum_launch(const float* rows, const long long* order,
-                                  const long long* bounds, float* out, int n_seg, void* stream) {
+                                  const int* sorted_ids, const long long* bounds, float* tiles,
+                                  float* out, long long n, int n_seg, void* stream) {
   if (n_seg == 0) return 0;
+  const auto* r4 = reinterpret_cast<const float4*>(rows);
+  const long long n_tiles = n / kSegTile;  // whole tiles only
+  if (n_tiles > 0) {
+    const unsigned blocks = (unsigned)((n_tiles + kWarps - 1) / kWarps);
+    segment_sum_tiles_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        r4, order, sorted_ids, reinterpret_cast<float4*>(tiles), n, n_seg);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   const unsigned blocks = (unsigned)((n_seg + kWarps - 1) / kWarps);
-  segment_sum_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(rows, order, bounds, out,
-                                                                   n_seg);
+  segment_sum_runs_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      r4, order, bounds, reinterpret_cast<const float4*>(tiles), reinterpret_cast<float4*>(out),
+      n_seg);
   return (int)cudaGetLastError();
 }

@@ -13,21 +13,31 @@
 // last tile is simply shorter (the TPU kernel's 128-lane packed rows are
 // Mosaic's alignment rule and are not carried over).
 //
-// Design (simple first):
-// - One thread per pixel, looping over its A rays, as the whole-table
-//   kernel. Every per-row test, the bounce step, the shading set-up, the
-//   RNG and the pack are the functions of fwd_common.cuh that the
-//   whole-table kernel calls, rows come in index order with a strict < on
-//   t, and ids are global triangle indices: a scene that both kernels can
-//   run gives the same image and the same record bit for bit.
+// Design:
+// - One thread per AA ray. A pixel's A rays sit in adjacent threads of
+//   one block, floor(128 / A) pixels a block (A > 128: one pixel a block,
+//   each thread taking every 128th ray). At 128x128 with 2x2 AA that is
+//   512 blocks, where one thread per pixel gave 128 blocks of 4 warps on
+//   132 SMs, under one warp per scheduler, and the scans waited on
+//   latency. Each ray seeds its RNG from
+//   its pixel's id and writes its own record entries; its colour goes to
+//   shared memory, and one thread per pixel adds the A colours as
+//   ((0 + c0) + c1) + ... in ray order, as the whole-table kernel's loop
+//   over the rays does, scales by 1/A and writes the pixel.
+// - Every per-row test, the bounce step, the shading set-up, the RNG and
+//   the pack are the functions of fwd_common.cuh that the whole-table
+//   kernel calls, rows come in index order with a strict < on t, and ids
+//   are global triangle indices: a scene that both kernels can run gives
+//   the same image and the same record bit for bit.
 // - A cooperative tile load needs every thread of the block at the same
-//   scan, so no thread leaves early (threads past the ragged edge carry no
-//   ray and only load) and every loop around a scan is block-uniform: the
-//   bounce loop runs while ANY ray of the block is active and the
-//   occlusion scan of sample s runs while any ray of the block still
-//   looks for an occluder (__syncthreads_or), with finished rays masked.
-//   A ray does exactly the tests it does in the whole-table kernel, up to
-//   the end of the tile in which its sample met its first occluder.
+//   scan, so no thread leaves early (threads past the ragged edge or past
+//   the block's last whole pixel carry no ray and only load) and every
+//   loop around a scan is block-uniform: the bounce loop runs while ANY
+//   ray of the block is active and the occlusion scan of sample s runs
+//   while any ray of the block still looks for an occluder
+//   (__syncthreads_or), with finished rays masked. A ray does exactly the
+//   tests it does in the whole-table kernel, up to the end of the tile in
+//   which its sample met its first occluder.
 // - The primary hit keeps its shared-origin form: each thread computes the
 //   seven invariants of the tile row it loaded. The winner's attributes
 //   (normal, colour, material) are read from device memory by index after
@@ -35,12 +45,14 @@
 //   once per scan and nothing is merged into the scan.
 // - Each sweep: barrier, every thread copies one row of the tile from
 //   device memory (the 622 KB table of 8,192 triangles stays in the L2
-//   cache), barrier, scan. No cp.async or TMA pipeline yet.
+//   cache), barrier, scan. Double-buffering the copies with cp.async ran
+//   4-6% slower on the H100: with four blocks an SM, the other blocks'
+//   scans already hide one block's copy, and the extra barrier and tile
+//   cost more than the overlap gains (PERF.md).
 //
 // What bounds it on this card: the FP32 instruction rate (rays x triangles
 // x about 26 to 70 operations per test); the table traffic is L2 reads of
-// 76 B per 128 row tests. At 128x128 pixels the grid is 128 blocks of 4
-// warps, less than one warp per scheduler: see PERF.md.
+// 76 B per 128 row tests.
 //
 // Built with --fmad=false, never --use_fast_math (see render_fwd.cu).
 
@@ -59,16 +71,21 @@ __global__ void __launch_bounds__(kThreads)
   float* prim = tile + kThreads * kTriCols;  // [kThreads][kPrimCols]
   float* sph = prim + kThreads * kPrimCols;
   float* cam = sph + P.n_sph * kSphCols;
+  float* col = cam + kCamCols;  // [pixels of the block][A][3]: the rays' colours
 
   for (int i = threadIdx.x; i < P.n_sph * kSphCols; i += blockDim.x) sph[i] = g_sph[i];
   for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) cam[i] = g_cam[i];
   __syncthreads();
 
+  const int A = P.aa_x * P.aa_y;
+  const int per_pix = min(A, kThreads);  // threads of one pixel
+  const int ppb = kThreads / per_pix;    // pixels of the block
+  const int lp = (int)threadIdx.x / per_pix, slot = (int)threadIdx.x - lp * per_pix;
   const size_t n_pix = (size_t)P.rows * P.width;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past the ragged edge stay: they carry no ray but load tiles
-  // and meet every barrier
-  const bool in_img = p < n_pix;
+  const size_t p = (size_t)blockIdx.x * ppb + lp;
+  // threads past the ragged edge or the block's last whole pixel stay: they
+  // carry no ray but load tiles and meet every barrier
+  const bool in_img = lp < ppb && p < n_pix;
   const int py = in_img ? (int)(p / P.width) : 0;
   const int px = in_img ? (int)(p - (size_t)py * P.width) : 0;
   const uint32_t gid = (uint32_t)((P.row0 + py) * P.width + px);  // < 2^24
@@ -83,10 +100,12 @@ __global__ void __launch_bounds__(kThreads)
 
   const float bx0 = (float)px * (float)P.aa_x - P.half_w;
   const float by0 = (float)(P.row0 + py) * (float)P.aa_y - P.half_h;
-  const int A = P.aa_x * P.aa_y;
-  V3 acc = make(0.0f, 0.0f, 0.0f);
 
-  for (int a = 0; a < A; ++a) {
+  // one round for A <= 128; past that each thread takes every 128th ray
+  const int rounds = (A + per_pix - 1) / per_pix;
+  for (int round = 0; round < rounds; ++round) {
+    const int a = slot + round * per_pix;
+    const bool ray = in_img && a < A;
     const V3 d = primary_dir(P, r0, r1, r2, bx0, by0, a);
 
     // --- primary nearest hit, shared-origin form, tile by tile ---
@@ -98,14 +117,14 @@ __global__ void __launch_bounds__(kThreads)
       if ((int)threadIdx.x < n)
         prim_invariants(cam_pos, tile + threadIdx.x * kTriCols, prim + threadIdx.x * kPrimCols);
       __syncthreads();
-      if (in_img)
+      if (ray)
         for (int i = 0; i < n; ++i)
           prim_test(d, tile + i * kTriCols, prim + i * kPrimCols, base + i, t_b, idf);
     }
-    if (in_img) prim_spheres(P, sph, cam_pos, d, t_b, idf);
+    if (ray) prim_spheres(P, sph, cam_pos, d, t_b, idf);
     const HitInfo ph = prim_finish(P, g_tri, sph, cam_pos, d, t_b, idf);
-    const bool hit = in_img && t_b < kBig;
-    if (pid && in_img) pid[a * n_pix + p] = idf;
+    const bool hit = ray && t_b < kBig;
+    if (pid && ray) pid[a * n_pix + p] = idf;
     // CPU-ref shades ANY hit triangle (no material logic, skeleton.cpp:268)
     const bool prim_diffuse = P.cpu_ref ? hit : (hit && ph.mat > 0.0f);
 
@@ -157,10 +176,10 @@ __global__ void __launch_bounds__(kThreads)
             medium = b.nmed;
           }
         }
-        if (bid && in_img) bid[((size_t)bi * A + a) * n_pix + p] = id_rec;
+        if (bid && ray) bid[((size_t)bi * A + a) * n_pix + p] = id_rec;
       }
       // steps no ray of the block ran read "inactive"
-      if (bid && in_img)
+      if (bid && ray)
         for (; bi < P.bounces; ++bi) bid[((size_t)bi * A + a) * n_pix + p] = -1;
     }
 
@@ -205,12 +224,26 @@ __global__ void __launch_bounds__(kThreads)
       color = shade_color(P, lit, sh.lam_base, light_rgb, indirect, term_valid, term_rgb, weight,
                           ph.rgb);
     }
-    if (lit_out && in_img) lit_out[a * n_pix + p] = lit_rec;
-    acc = add(acc, color);
+    if (ray) {
+      if (lit_out) lit_out[a * n_pix + p] = lit_rec;
+      float* c = col + ((size_t)lp * A + a) * 3;
+      c[0] = color.x;
+      c[1] = color.y;
+      c[2] = color.z;
+    }
   }
 
-  if (in_img) write_pixel(img, packed, p, scale(P.inv_a, acc));
+  // --- the AA sum of each pixel's rays, in ray order, by its first thread ---
+  __syncthreads();
+  if (in_img && slot == 0) {
+    V3 acc = make(0.0f, 0.0f, 0.0f);
+    for (int a = 0; a < A; ++a) acc = add(acc, load3(col + ((size_t)lp * A + a) * 3));
+    write_pixel(img, packed, p, scale(P.inv_a, acc));
+  }
 }
+
+// Pixels of one block: floor(kThreads / A) (one when A > kThreads).
+inline int pixels_per_block(int A) { return kThreads / (A < kThreads ? A : kThreads); }
 
 }  // namespace
 
@@ -225,14 +258,16 @@ extern "C" int render_fwd_streamed_launch(const float* tri, const float* sph, co
   const Params P = make_params(ip, fp);
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
+  const int A = P.aa_x * P.aa_y;
+  const int ppb = pixels_per_block(A);
   const size_t smem = sizeof(float) * ((size_t)kThreads * (kTriCols + kPrimCols) +
-                                       (size_t)P.n_sph * kSphCols + kCamCols);
+                                       (size_t)P.n_sph * kSphCols + kCamCols + (size_t)ppb * A * 3);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         render_fwd_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
+  const unsigned blocks = (unsigned)((n_pix + ppb - 1) / ppb);
   render_fwd_streamed_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       tri, sph, cam, shd, img, packed, pid, lit, bid, P);
   return (int)cudaGetLastError();

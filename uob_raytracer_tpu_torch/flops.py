@@ -360,8 +360,9 @@ def sass_loops(func: dict) -> list[dict]:
 
 def mangled_fragment(kernel: str) -> str:
     """The piece of the Itanium-mangled name that identifies ``kernel``:
-    "render_bwd_kernel" -> "17render_bwd_kernelE", "peak_chain<2, 16>" ->
-    "10peak_chainILi2ELi16EE" (int template arguments only)."""
+    "census_probe_kernel" -> "19census_probe_kernelE", "peak_chain<2, 16>"
+    -> "10peak_chainILi2ELi16EE", "render_bwd_kernel<false>" ->
+    "17render_bwd_kernelILb0EE" (int and bool template arguments only)."""
     m = re.fullmatch(r"\s*(\w+)\s*(?:<([^>]*)>)?\s*", kernel)
     if not m:
         raise ValueError(f"kernel name {kernel!r}: name or name<int, ...>")
@@ -369,9 +370,14 @@ def mangled_fragment(kernel: str) -> str:
     head = f"{len(name)}{name}"
     if args is None:
         return head + "E"
-    ints = [int(a) for a in args.split(",")]
-    return head + "I" + "".join(f"Li{a}E" if a >= 0 else f"Lin{-a}E"
-                                for a in ints) + "E"
+
+    def arg(a: str) -> str:
+        a = a.strip()
+        if a in ("false", "true"):
+            return f"Lb{int(a == 'true')}E"
+        return f"Li{int(a)}E" if int(a) >= 0 else f"Lin{-int(a)}E"
+
+    return head + "I" + "".join(arg(a) for a in args.split(",")) + "E"
 
 
 @functools.lru_cache(maxsize=2)

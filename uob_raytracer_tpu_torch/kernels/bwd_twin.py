@@ -34,7 +34,7 @@ from . import _build
 from .render_fwd import (CAM_COLS, GRAD_COLS, OBJ_COLS, SMEM_BUDGET_BYTES,
                          THREADS, _check)
 from .peak import divide
-from .render_bwd import MAX_BOUNCES
+from .render_bwd import REG_BOUNCES
 
 HALF = 6          # iterations of each half of the main chain, at most
 MAX_MAIN = 2 * HALF
@@ -279,9 +279,9 @@ def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict):
         return out["sums"].float(), out["img"]
     n_obj = table.shape[0]
     A, B, H, W = cfg.aa_rays, cfg.bounces, cfg.height, cfg.width
-    if B > MAX_BOUNCES:
+    if B > REG_BOUNCES:   # the twin mirrors K2's register instance
         raise ValueError(f"bwd_twin: {B} bounces; the kernel keeps at most "
-                         f"{MAX_BOUNCES} steps per ray")
+                         f"{REG_BOUNCES} steps per ray")
     smem = 4 * (n_obj * OBJ_COLS + (THREADS // 32) * (n_obj * GRAD_COLS
                                                       + CAM_COLS))
     if smem > SMEM_BUDGET_BYTES:

@@ -19,16 +19,26 @@ streamed kernel (``csrc/render_bwd_streamed.cu``, the counterpart of
 ``_bwd_kernel``'s ``streamed=True`` mode) takes any triangle count: it
 reads rows straight from device memory and writes each triangle's cotangent
 per ray and site (``dlane``); ``segment_sum`` then adds the sites of each
-triangle in a fixed order (a stable sort of the recorded ids and a second
-small kernel; no float atomics, so two runs are bit-equal), while the few
+triangle in a fixed order (a stable sort of the recorded ids and two small
+kernels; no float atomics, so two runs are bit-equal), while the few
 spheres and the camera keep per-block partial sums.
+
+Both kernels come in two instances. Up to ``REG_BOUNCES`` bounces a ray's
+bounce chain lives in a per-thread array (the register instance); a deeper
+config launches the deep instance, whose chain lives in a device buffer
+that the wrapper allocates, so any bounce count runs. A frame whose
+per-block partials, per-site rows or chain would pass their byte limits
+(``MAX_PARTIAL_BYTES``, ``MAX_DLANE_BYTES``, ``MAX_CHAIN_BYTES``) is taken
+in row bands (``_row_bands``): the same kernel once per band, each band's
+table cotangents added in band order, one pull-back at the end.
 
 The kernel's plain torch version, ``render_replay_bwd_plain`` (torch
 autograd through ``ops.replay.replay_forward``), lives here beside it. For
 a scene on the CPU the wrapper runs that plain version; for a CUDA scene it
 launches the kernel or raises, and never falls back. ``LAUNCHES`` counts
 the whole-table kernel's launches, ``STREAMED_LAUNCHES`` the streamed
-kernel's, ``SEGMENT_SUM_LAUNCHES`` the segmented sum's.
+kernel's (one per row band), ``SEGMENT_SUM_LAUNCHES`` the segmented sum's
+calls (each launches its two passes).
 """
 from __future__ import annotations
 
@@ -53,18 +63,26 @@ LAUNCHES = 0
 STREAMED_LAUNCHES = 0
 SEGMENT_SUM_LAUNCHES = 0
 
-# Per-thread storage of the bounce chain is sized at compile time
-# (kMaxBounces in csrc/bwd_common.cuh); deeper configs are refused.
-MAX_BOUNCES = 16
-# The whole-table kernel's per-block partial sums grow with the object
-# count times the pixel count; past this size the call is refused (row
-# bands are the caller's way down).
+# The register instance keeps a ray's bounce chain in a per-thread array of
+# this many steps (kRegBounces in csrc/bwd_common.cuh); deeper configs
+# launch the deep instance, whose chain is a device buffer of CHAIN_FLOATS
+# floats per step and thread of the grid (kChainFloats: 12 floats and the
+# id).
+REG_BOUNCES = 16
+CHAIN_FLOATS = 13
+# Byte limits of one band's buffers; a frame past any of them is taken in
+# row bands. The whole-table kernel's per-block partial sums grow with the
+# object count times the pixel count. The streamed kernel's per-site
+# cotangent rows take 64 B for every ray and site, (1 + bounces) * A * rows
+# * W of them: 128x128 with 2x2 AA and 2 bounces needs 12.6 MB, 1024x1024
+# with 2x2 AA and 10 bounces 2.9 GB (two bands). The deep chain takes 52 B
+# per thread and bounce.
 MAX_PARTIAL_BYTES = 1 << 30
-# The streamed kernel's per-site cotangent rows: 64 B for every ray and
-# site, (1 + bounces) * A * rows * W of them. 128x128 with 2x2 AA and 2
-# bounces needs 12.6 MB, 1024x1024 with 2x2 AA and 10 bounces 2.9 GB; past
-# this size the call is refused (row bands are the caller's way down).
 MAX_DLANE_BYTES = 1 << 31
+MAX_CHAIN_BYTES = 1 << 31
+# The segmented sum's tile of sorted positions (kSegTile in
+# csrc/render_bwd_streamed.cu).
+SEGMENT_TILE = 128
 
 _F = np.float32
 _LEAVES = tuple(f.name for f in dataclasses.fields(Scene))
@@ -125,13 +143,57 @@ def launch_params(cfg: RenderConfig, row0: int, rows: int, n_tri: int,
 
 def _declare(lib: ctypes.CDLL, streamed: bool):
     """The launcher of the whole-table kernel (one output buffer: the
-    partials) or of the streamed kernel (two: dlane and the partials)."""
+    partials) or of the streamed kernel (two: dlane and the partials); both
+    then take the image and the deep chain."""
     fn = lib.render_bwd_streamed_launch if streamed else lib.render_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * (10 if streamed else 9)
+    fn.argtypes = ([ctypes.c_void_p] * (11 if streamed else 10)
                    + [ctypes.POINTER(ctypes.c_int),
                       ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def band_bytes(n: int, W: int, A: int, B: int, cols: int,
+               streamed: bool) -> dict:
+    """{name: (bytes, limit)} of the buffers one launch over a band of n
+    rows needs: the per-block partials (whole-table) or the per-site rows
+    (streamed), and the deep chain when B > REG_BOUNCES."""
+    threads = -(-n * W // THREADS) * THREADS
+    out = ({"dlane": (4 * GRAD_COLS * (1 + B) * A * n * W, MAX_DLANE_BYTES)}
+           if streamed else
+           {"partials": (4 * (threads // THREADS) * cols, MAX_PARTIAL_BYTES)})
+    if B > REG_BOUNCES:
+        out["chain"] = (4 * CHAIN_FLOATS * B * threads, MAX_CHAIN_BYTES)
+    return out
+
+
+def _fits(n, W, A, B, cols, streamed) -> bool:
+    return all(b <= lim for b, lim in
+               band_bytes(n, W, A, B, cols, streamed).values())
+
+
+def _row_bands(rows: int, W: int, A: int, B: int, cols: int,
+               streamed: bool) -> list[tuple[int, int]]:
+    """The row bands a backward over ``rows`` rows is taken in: consecutive
+    (offset, n) covering [0, rows) in order, each within the byte limits of
+    ``band_bytes``, as few as there can be, of near-equal height (all but
+    the last of the same height). Raises if one row is past a limit."""
+    if not rows:
+        return []
+    if not _fits(1, W, A, B, cols, streamed):
+        over = {k: v for k, v in band_bytes(1, W, A, B, cols,
+                                            streamed).items() if v[0] > v[1]}
+        raise ValueError(
+            f"render_bwd: one row of {W} pixels ({A} AA rays, {B} bounces) "
+            f"needs more than a launch may hold: " + ", ".join(
+                f"{k} {b} B (limit {lim} B)" for k, (b, lim) in over.items()))
+    lo, hi = 1, rows              # the tallest band that fits: lo
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _fits(mid, W, A, B, cols, streamed) else (lo,
+                                                                        mid - 1)
+    h = -(-rows // -(-rows // lo))  # the fewest bands, of near-equal height
+    return [(o, min(h, rows - o)) for o in range(0, rows, h)]
 
 
 def _spread(obj_tri, obj_sph, dcam, sph_rows: int):
@@ -174,12 +236,13 @@ def segment_sum(ids, rows, n_seg: int):
     rows: float32 [n, 16].
 
     On a CUDA tensor: a stable sort of the ids (equal ids keep their
-    order), the bounds of each id's run, and one launch of
-    ``segment_sum_kernel`` (``csrc/render_bwd_streamed.cu``), which gives
-    each run to one warp and adds its rows in a fixed order. Unlike
-    ``index_add_`` on the card, which adds with float atomics, two calls
-    on the same inputs give the same bits. A CPU tensor takes
-    ``segment_sum_plain``."""
+    order), the bounds of each id's run, and one call of
+    ``segment_sum_launch`` (``csrc/render_bwd_streamed.cu``), whose two
+    passes sum aligned tiles of 128 sorted positions that lie inside one
+    run, then each run's head, tiles and tail in order, so that a long run
+    is split over warps. Unlike ``index_add_`` on the card, which adds with
+    float atomics, two calls on the same inputs give the same bits. A CPU
+    tensor takes ``segment_sum_plain``."""
     global SEGMENT_SUM_LAUNCHES
     if rows.device.type == "cpu":
         return segment_sum_plain(ids, rows, n_seg)
@@ -187,17 +250,23 @@ def segment_sum(ids, rows, n_seg: int):
     ids = ids.reshape(-1)
     _check("segment_sum ids", ids, (rows.shape[0],), torch.int32)
     _check("segment_sum rows", rows, (ids.shape[0], GRAD_COLS))
+    if rows.data_ptr() % 16:      # the kernels read rows as float4
+        rows = rows.clone()
+    n = ids.shape[0]
     sorted_ids, order = torch.sort(ids, stable=True)
     bounds = torch.searchsorted(
         sorted_ids, torch.arange(n_seg + 1, dtype=torch.int32, device=dev))
+    tiles = torch.empty((n // SEGMENT_TILE, GRAD_COLS), dtype=torch.float32,
+                        device=dev)
     out = torch.empty((n_seg, GRAD_COLS), dtype=torch.float32, device=dev)
     fn = _build.load().segment_sum_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        err = fn(rows.data_ptr(), order.data_ptr(), bounds.data_ptr(),
-                 out.data_ptr(), n_seg,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(rows.data_ptr(), order.data_ptr(), sorted_ids.data_ptr(),
+                 bounds.data_ptr(), tiles.data_ptr(), out.data_ptr(), n,
+                 n_seg, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
                            f"{err}")
@@ -237,8 +306,12 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     image cotangent [rows, W, 3]. Returns a Scene of gradients (zeros for
     the material codes), equal to float tolerance to autograd through
     ``replay_forward``; with ``return_primal`` also the replayed radiance
-    [rows, W, 3]. A CPU scene runs ``render_replay_bwd_plain``. ``_kernel``
-    pins the whole-table or the streamed kernel (``render_fwd.pick_kernel``)."""
+    [rows, W, 3]. Any bounce count and any frame size: a frame past the
+    byte limits is taken in the row bands of ``_row_bands`` (one launch
+    each, the bands' table cotangents added in band order, so two calls
+    give the same bits). A CPU scene runs ``render_replay_bwd_plain``.
+    ``_kernel`` pins the whole-table or the streamed kernel
+    (``render_fwd.pick_kernel``)."""
     global LAUNCHES, STREAMED_LAUNCHES
     row0, rows = _band(cfg, row0, rows)
     dev = scene.device
@@ -248,39 +321,23 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     if dev.type != "cuda":
         raise ValueError(f"render_bwd: scene on {dev}; the kernel needs a "
                          f"CUDA device (its plain version the CPU)")
-    if cfg.bounces > MAX_BOUNCES:
-        raise ValueError(f"render_bwd: {cfg.bounces} bounces; the kernel "
-                         f"keeps at most {MAX_BOUNCES} steps per ray")
 
     n_tri = scene.num_triangles
     # CPU-ref ignores spheres entirely, as the forward kernel does
     n_sph = 0 if cfg.cpu_ref else scene.num_spheres
     n_obj = n_tri + n_sph
     W, A, B = cfg.width, cfg.aa_rays, cfg.bounces
-    n_blocks = (rows * W + THREADS - 1) // THREADS
     streamed = pick_kernel(n_tri, scene.num_spheres, _kernel)
-    n_sites = (1 + B) * A * rows * W
     if streamed:
         cols = n_sph * GRAD_COLS + CAM_COLS
-        if 4 * GRAD_COLS * n_sites > MAX_DLANE_BYTES:
-            raise ValueError(
-                f"render_bwd: the streamed backward kernel writes one "
-                f"{4 * GRAD_COLS} B cotangent row per ray and site; "
-                f"{n_sites} sites ({rows}x{W} pixels, {A} AA rays, 1 + {B} "
-                f"sites) need {4 * GRAD_COLS * n_sites} B, above the limit "
-                f"of {MAX_DLANE_BYTES} B: take the gradient in row bands "
-                f"(row0/rows) and add them")
     else:
         cols = n_obj * GRAD_COLS + CAM_COLS
-        if (shared_bytes(n_obj) > SMEM_BUDGET_BYTES
-                or 4 * n_blocks * cols > MAX_PARTIAL_BYTES):
+        if shared_bytes(n_obj) > SMEM_BUDGET_BYTES:
             raise ValueError(
-                f"render_bwd: {n_obj} objects over {n_blocks} blocks: the "
-                f"whole-table backward kernel needs {shared_bytes(n_obj)} B "
-                f"of shared memory (limit {SMEM_BUDGET_BYTES}) and "
-                f"{4 * n_blocks * cols} B of partial sums (limit "
-                f"{MAX_PARTIAL_BYTES}): take the gradient in row bands "
-                f"(row0/rows) and add them")
+                f"render_bwd: {n_obj} objects: the whole-table backward "
+                f"kernel needs {shared_bytes(n_obj)} B of shared memory "
+                f"(limit {SMEM_BUDGET_BYTES})")
+    bands = _row_bands(rows, W, A, B, cols, streamed)
 
     with torch.enable_grad():
         leaves = _detached(scene)
@@ -296,34 +353,59 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     if B:
         _check("res.bounce_id", res.bounce_id, (B, A, rows, W), torch.int32)
 
-    partial = torch.empty((n_blocks, cols), dtype=torch.float32, device=dev)
-    # the streamed kernel writes only the sites that hit a triangle: the
-    # rest of dlane must read zero
-    outs = ([torch.zeros((n_sites, GRAD_COLS), dtype=torch.float32,
-                         device=dev)] if streamed else []) + [partial]
+    # one set of buffers, of the tallest band, reused band after band
+    h = max((n for _, n in bands), default=0)
+    threads = -(-h * W // THREADS) * THREADS
+    partial = torch.empty((threads // THREADS, cols), dtype=torch.float32,
+                          device=dev)
+    dlane = (torch.empty(((1 + B) * A * h * W, GRAD_COLS),
+                         dtype=torch.float32, device=dev)
+             if streamed else None)
+    chain = (torch.empty((CHAIN_FLOATS * B * threads,), dtype=torch.float32,
+                         device=dev) if B > REG_BOUNCES else None)
     img = (torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
            if return_primal else None)
-    ints, floats = launch_params(cfg, row0, rows, n_tri, n_sph, return_primal)
     launch = _declare(_build.load(), streamed)
-    with torch.cuda.device(dev):
-        err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
-                     g.data_ptr(), res.prim_id.data_ptr(),
-                     res.lit_cnt.data_ptr(),
-                     res.bounce_id.data_ptr() if B else 0,
-                     *(t.data_ptr() for t in outs),
-                     0 if img is None else img.data_ptr(),
-                     ints, floats,
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"render_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    if streamed:
-        STREAMED_LAUNCHES += 1
-        cotangents = streamed_table_cotangents(
-            partial, outs[0], site_ids(res), n_tri, n_sph, sph.shape[0])
-    else:
-        LAUNCHES += 1
-        cotangents = table_cotangents(partial, n_tri, n_sph, sph.shape[0])
+    totals = None
+    for o, n in bands:
+        if (o, n) == (0, rows):
+            g_b, res_b = g, res
+        else:
+            g_b = g[o:o + n].contiguous()
+            res_b = Residuals(*(t[..., o:o + n, :].contiguous() for t in res))
+        partial_b = partial[:-(-n * W // THREADS)]
+        outs = [partial_b]
+        if streamed:
+            # the kernel writes only the sites that hit a triangle: the rest
+            # of the band's rows must read zero
+            outs.insert(0, dlane[:(1 + B) * A * n * W].zero_())
+        ints, floats = launch_params(cfg, row0 + o, n, n_tri, n_sph,
+                                     return_primal)
+        with torch.cuda.device(dev):
+            err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
+                         g_b.data_ptr(), res_b.prim_id.data_ptr(),
+                         res_b.lit_cnt.data_ptr(),
+                         res_b.bounce_id.data_ptr() if B else 0,
+                         *(t.data_ptr() for t in outs),
+                         0 if img is None else img[o:o + n].data_ptr(),
+                         0 if chain is None else chain.data_ptr(),
+                         ints, floats,
+                         torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"render_bwd kernel launch failed: CUDA error "
+                               f"{err}")
+        if streamed:
+            STREAMED_LAUNCHES += 1
+            cot = streamed_table_cotangents(
+                partial_b, outs[0], site_ids(res_b), n_tri, n_sph,
+                sph.shape[0])
+        else:
+            LAUNCHES += 1
+            cot = table_cotangents(partial_b, n_tri, n_sph, sph.shape[0])
+        totals = cot if totals is None else tuple(
+            t + c for t, c in zip(totals, cot))
+    if totals is None:      # no rows: nothing reaches the tables
+        totals = tuple(torch.zeros_like(t) for t in (tri, sph, cam))
 
-    bar = _pull_back(list(tables), leaves, list(cotangents))
+    bar = _pull_back(list(tables), leaves, list(totals))
     return (bar, img) if return_primal else bar

@@ -84,11 +84,16 @@ def global_mesh(dp: int | None = None, tp: int = 1):
 
 
 def _rank_main(fn, rank: int, num_processes: int, url: str, timeout_s: int,
-               args: tuple) -> None:
+               args: tuple, failed_at) -> None:
     torch.set_num_threads(1)   # ranks share the host's cores
     initialize_multihost(url, num_processes, rank, timeout_s)
     try:
         fn(rank, *args)
+    except BaseException:
+        # the moment this rank failed, before its group goes down and the
+        # ranks waiting on it fail in turn
+        failed_at[rank] = time.monotonic()
+        raise
     finally:
         dist.destroy_process_group()
 
@@ -100,10 +105,13 @@ def spawn_ranks(fn, num_processes: int, url: str, args: tuple = (),
     one process group through ``initialize_multihost(url, ...)``. ``fn``
     must be importable (a module-level function). A rank that fails fails
     the run: the first non-zero exit, or ``timeout_s`` passing, kills the
-    other ranks and raises RuntimeError."""
+    other ranks and raises RuntimeError naming the rank that failed first
+    (the others may fail because it did, and exit before it)."""
     ctx = multiprocessing.get_context("spawn")
+    failed_at = ctx.Array("d", [float("inf")] * num_processes)
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, num_processes, url, timeout_s, args))
+                         args=(fn, r, num_processes, url, timeout_s, args,
+                               failed_at))
              for r in range(num_processes)]
     for p in procs:
         p.start()
@@ -111,20 +119,25 @@ def spawn_ranks(fn, num_processes: int, url: str, args: tuple = (),
     failure = None
     try:
         while failure is None and any(p.is_alive() for p in procs):
-            for r, p in enumerate(procs):
-                if p.exitcode not in (None, 0):
-                    failure = f"rank {r} exited with code {p.exitcode}"
-            if failure is None and time.monotonic() > deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                failure = "failed"
+            elif time.monotonic() > deadline:
                 failure = f"ranks still running after {timeout_s}s"
             time.sleep(0.05)
+        if failure == "failed":
+            # a moment for the rank that failed first to exit with its code
+            grace = time.monotonic() + 5.0
+            for p in procs:
+                p.join(max(grace - time.monotonic(), 0.0))
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
         for p in procs:
             p.join()
-    bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
-    if failure is None and bad:
-        failure = f"rank {bad[0][0]} exited with code {bad[0][1]}"
+    bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if bad and failure != f"ranks still running after {timeout_s}s":
+        first = min(bad, key=lambda r: (failed_at[r], r))
+        failure = f"rank {first} exited with code {procs[first].exitcode}"
     if failure is not None:
         raise RuntimeError(f"spawn_ranks: {failure}")

@@ -372,12 +372,12 @@ def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
     (``per_call`` launches each), from torch.profiler (a wrapper's time
     also holds its host-side work). The tracer may drop the records of some
     launches: the mean is over the launches it kept, at least half of them,
-    in at most three profiler runs. It never keeps more than were made."""
+    in at most five profiler runs. It never keeps more than were made."""
     calls, n = n, n * per_call
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     seen = []
-    for _ in range(3):
+    for _ in range(5):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
@@ -395,7 +395,25 @@ def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
                       flush=True)
             return sum(k.self_device_time_total for k in rows) / count / 1000.0
     raise AssertionError(f"profiler kept {seen} of {n} {kernel} launches "
-                         f"in three profiler runs")
+                         f"in five profiler runs")
+
+
+def k2_device_ms(fn, n: int = 10) -> tuple[float, float]:
+    """Device ms of the whole-table backward's chain launch and of its
+    chain-free launch (0 where the call makes none: past 32 objects) in
+    each of n calls of fn."""
+    chain = kernel_device_ms(fn, "render_bwd_kernel", n=n)
+    free = (kernel_device_ms(fn, "render_bwd_free_kernel", n=n)
+            if render_bwd_free_launches(fn) else 0.0)
+    return chain, free
+
+
+def render_bwd_free_launches(fn) -> int:
+    """Chain-free launches one call of fn makes."""
+    before = render_bwd.FREE_LAUNCHES
+    fn()
+    torch.cuda.synchronize()
+    return render_bwd.FREE_LAUNCHES - before
 
 
 def segment_sum_device_ms(fn, n: int = 10) -> float:
@@ -408,6 +426,7 @@ def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
     render_fwd.LAUNCHES = render_fwd.STREAMED_LAUNCHES = 0
     render_bwd.LAUNCHES = render_bwd.STREAMED_LAUNCHES = 0
+    render_bwd.FREE_LAUNCHES = 0
     render_bwd.SEGMENT_SUM_LAUNCHES = 0
     partial.NEAREST_LAUNCHES = partial.OCCLUDED_LAUNCHES = 0
     peak.LAUNCHES = peak.PROBE_LAUNCHES = bwd_twin.LAUNCHES = 0
@@ -818,11 +837,15 @@ def main() -> None:
                 raise AssertionError(f"train_step {step}: {k} is not finite")
     torch.cuda.synchronize()
     train_launches = (render_fwd.LAUNCHES, render_bwd.LAUNCHES)
+    train_free = render_bwd.FREE_LAUNCHES
+    if train_free != 5:
+        raise AssertionError(f"5 train_steps made {train_free} chain-free "
+                             f"backward launches")
     if not losses[4] < losses[0]:
         raise AssertionError(f"loss did not fall over 5 steps: {losses}")
     print(f"training path: 5 train_steps at full_1024 on light_pos, tri_rgb: "
-          f"{train_launches[0]} forward and {train_launches[1]} backward "
-          f"launches, loss {losses[0]:.6g} -> {losses[4]:.6g}, light "
+          f"{train_launches[0]} forward and {train_launches[1]} + {train_free} "
+          f"backward launches (chain, chain-free), loss {losses[0]:.6g} -> {losses[4]:.6g}, light "
           f"{[round(v, 4) for v in live.light_pos.tolist()]}", flush=True)
 
     # --- 6. the backward kernel at full width against its plain version in
@@ -1041,6 +1064,13 @@ def main() -> None:
     # register instance at 16 bounces on the same scene; the 600-triangle
     # scene's mirror box at 256x256 through the streamed backward's deep
     # instance; and render_image's gradient through each, counts from 0
+    def deep_device_ms(fn, kname):
+        """The backward's device ms: both launches of the whole-table
+        kernels, the streamed kernel alone."""
+        if kname == "render_bwd_kernel":
+            return sum(k2_device_ms(fn, n=5))
+        return kernel_device_ms(fn, kname, n=5)
+
     deep = {}
     for name, sc, size, bands, kname in (
             ("mirror box", mirror_box(cornell), 512, 8, "render_bwd_kernel"),
@@ -1064,10 +1094,10 @@ def main() -> None:
         res_r = render_fwd.render_fused_res(sc, cfg_r)[2]
         d = {"rel": rel_d, "abs": abs_d, "hits": int(hits.sum()),
              "past": past, "hits_reg": int((res_r.bounce_id >= 0).sum()),
-             "dev": kernel_device_ms(lambda: render_bwd.render_replay_bwd(
-                 sc, cfg_d, res_d, g_d), kname, n=5),
-             "dev_reg": kernel_device_ms(lambda: render_bwd.render_replay_bwd(
-                 sc, cfg_r, res_r, g_d), kname, n=5),
+             "dev": deep_device_ms(lambda: render_bwd.render_replay_bwd(
+                 sc, cfg_d, res_d, g_d), kname),
+             "dev_reg": deep_device_ms(lambda: render_bwd.render_replay_bwd(
+                 sc, cfg_r, res_r, g_d), kname),
              "ms": median_ms(lambda: render_bwd.render_replay_bwd(
                  sc, cfg_d, res_d, g_d), 1, 3),
              "plain": median_ms(lambda: plain_bwd_banded(
@@ -1081,12 +1111,17 @@ def main() -> None:
             [live.light_pos, live.tri_rgb])
         torch.cuda.synchronize()
         d["counts"] = counts()
+        d["free"] = render_bwd.FREE_LAUNCHES
         want = ((1, 0, 1, 0, 0) if kname == "render_bwd_kernel"
                 else (0, 1, 0, 1, 1))
-        if d["counts"] != want or not all(torch.isfinite(t).all()
-                                          for t in grads):
+        want_free = int(kname == "render_bwd_kernel" and render_bwd.splits(
+            cfg_d, size, sc.num_triangles + sc.num_spheres))
+        if (d["counts"] != want or d["free"] != want_free or not all(
+                    torch.isfinite(t).all()
+                                          for t in grads)):
             raise AssertionError(f"{name}: render_image's gradient at 32 "
                                  f"bounces: launch counts {d['counts']}, "
+                                 f"chain-free {d['free']}, "
                                  f"finite {[bool(torch.isfinite(t).all()) for t in grads]}")
         deep[name] = d
         print(f"deep bounces {name} {size}x{size} 32 bounces [{card}]: "
@@ -1243,7 +1278,8 @@ def main() -> None:
         med["fwd_rec_dev"] = kernel_device_ms(fwd_rec, "render_fwd_kernel")
         med["fwd_train_dev"] = kernel_device_ms(fwd_rec_train,
                                                 "render_fwd_kernel")
-        med["bwd_dev"] = kernel_device_ms(bwd, "render_bwd_kernel")
+        med["bwd_chain_dev"], med["bwd_free_dev"] = k2_device_ms(bwd)
+        med["bwd_dev"] = med["bwd_chain_dev"] + med["bwd_free_dev"]
         med["fwd_work"] = fwd_work(cfg, scene, quads, res, False)
         med["fwd_bound"] = bound(*med["fwd_work"])
         med["fwd_rec_work"] = fwd_work(cfg, scene, quads, res, True)
@@ -1268,7 +1304,9 @@ def main() -> None:
               f"{med['fwd_train_bound'][0]:.4f} ms by "
               f"{med['fwd_train_bound'][1]}; backward wrapper "
               f"{med['bwd']:.4f} ms (min {min(t['bwd']):.4f}, max "
-              f"{max(t['bwd']):.4f}), device {med['bwd_dev']:.4f} ms, bound "
+              f"{max(t['bwd']):.4f}), device {med['bwd_dev']:.4f} ms (chain "
+              f"launch {med['bwd_chain_dev']:.4f}, chain-free launch "
+              f"{med['bwd_free_dev']:.4f}), bound "
               f"{med['bwd_bound'][0]:.4f} ms by {med['bwd_bound'][1]}; "
               f"train_step {med['step']:.4f} ms (min {min(t['step']):.4f}, max "
               f"{max(t['step']):.4f}); plain forward {med['plain']:.2f} ms, "
@@ -1571,6 +1609,14 @@ def main() -> None:
                      sum(w[1] for w in k5_works) / len(k5_works))
     pt["k5_bound"] = bound(*pt["k5_work"])
     lit_share = 1.0 - torch.stack(bits_big).float().mean().item()
+    # what one thread per ray spends its lane-rows on (flops.occluded_lanes)
+    firsts = [flops.first_occluder(*a) for a in calls["occluded"]]
+    k5_lanes = {s: [flops.occluded_lanes(f, big.num_triangles, s)
+                    for f in firsts] for s in ("pr6", "pr7")}
+    print("K5 lanes on the three occlusion batches: "
+          + "; ".join(f"{s}: used {[round(x['used'], 4) for x in v]}, row "
+                      f"order {[round(x['row_order'], 4) for x in v]}"
+                      for s, v in k5_lanes.items()), flush=True)
     print(f"time sharded path on one process, dense_8192 128x128 aa4 s3 b2 "
           f"[{card}]: frame (3 nearest-hit + 3 occlusion launches and the "
           f"torch shading between them) {pt['fwd']:.4f} ms, forward+backward "
@@ -1736,9 +1782,11 @@ def main() -> None:
     # 11e. timings: K6's headline fma chain and its plain version, the
     # probe, each twin beside K2 on the same record
     x16 = torch.full(flops.PEAK_SHAPE, 0.99999, device="cuda")
+    # K6's device time by CUDA events around 10 launches queued behind a
+    # sleep (one launch a call; the profiler has kept as few as 4 of its 10
+    # records in all three of kernel_device_ms's sessions)
     k6 = {"ms": median_ms(lambda: peak.peak_chain("fma", 16, x16), 2, 5),
-          "dev": kernel_device_ms(lambda: peak.peak_chain("fma", 16, x16),
-                                  "peak_chain"),
+          "dev": flops.device_ms(lambda: peak.peak_chain("fma", 16, x16), 10),
           "plain": median_ms(lambda: peak.peak_chain_plain("fma", 16, x16),
                              0, 2)}
     # the probe runs for about a microsecond, too short for the profiler to
@@ -1750,7 +1798,7 @@ def main() -> None:
     for tname, t in twins.items():
         tw, tcfg, tres = t["twin"], t["cfg"], t["res"]
         t["dev"] = kernel_device_ms(tw["run"], "bwd_twin_kernel")
-        t["k2_dev"] = kernel_device_ms(t["k2"], "render_bwd_kernel")
+        t["k2_dev"] = sum(k2_device_ms(t["k2"]))
         t["ms"] = median_ms(tw["run"], 2, 5)
         t["plain"] = median_ms(tw["run_plain"], 0, 2)
         rays = tres.prim_id.numel()
@@ -1786,6 +1834,18 @@ def main() -> None:
               f" ms at the measured no-FMA peak", flush=True)
 
     full = times["full_1024"]
+    # K2's split on the full_1024 record: the chain-free launch's pixels,
+    # the chain share and the scatter's shuffles (flops.py)
+    cfg_full, sc_full = RenderConfig(), scenes["full_1024"][0]
+    res_full = records["full_1024"]
+    chain_pix = flops.chain_rays(sc_full, cfg_full, res_full).reshape(
+        cfg_full.aa_rays, -1).any(dim=0)
+    free_work = bwd_work(cfg_full, sc_full, res_full, pixels=~chain_pix)
+    share_full = flops.chain_share(sc_full, cfg_full, res_full)
+    scatter_full = {s: flops.scatter_work(sc_full, cfg_full, res_full, s)
+                    for s in ("pr6", "pr7")}
+    print(f"K2 split at full_1024: chain share {share_full}; scatter "
+          f"shuffles {scatter_full}", flush=True)
     src = "uob_raytracer_tpu_torch/csrc/"
     jax_fwd = "uob_raytracer_tpu/kernels/render_fwd.py"
     jax_bwd = "uob_raytracer_tpu/kernels/render_bwd.py"
@@ -1821,8 +1881,22 @@ def main() -> None:
         entry("K2 render_bwd (whole-table)", "render_bwd.cu",
               f"{jax_bwd}:366", train_launches[1], bwd_abs, full["bwd"],
               full["plain_bwd"], full["bwd_work"], full["bwd_dev"],
-              at="full_1024, 5 train_steps", max_rel_err=bwd_rel,
-              train_step_ms=full["step"]),
+              at="full_1024, 5 train_steps; device_ms: both launches (the "
+              "chain launch render_bwd_kernel, whose launches are counted "
+              "here, and the chain-free launch, row K2f)",
+              max_rel_err=bwd_rel, train_step_ms=full["step"],
+              chain_device_ms=full["bwd_chain_dev"],
+              free_device_ms=full["bwd_free_dev"], chain_share=share_full,
+              scatter_shuffles=scatter_full,
+              chain_resources=k2_res,
+              free_resources=flops.kernel_resources(render_bwd.FREE_SYMBOL)),
+        entry("K2f render_bwd chain-free launch", "render_bwd.cu",
+              f"{jax_bwd}:366", train_free, bwd_abs, full["bwd"],
+              full["plain_bwd"], free_work, full["bwd_free_dev"],
+              at="full_1024, 5 train_steps: the pixels none of whose rays "
+              "bounces; ms, plain_ms and max_abs_err are the whole "
+              "backward's (one wrapper call launches both)",
+              pixels=1.0 - share_full["pixels"]),
         entry("K2' render_bwd past 32 objects", "render_bwd.cu",
               f"{jax_bwd}:126", train_launches[1], k2p_abs, k2p["ms"],
               k2p["plain"], k2p["work"], k2p["dev"],
@@ -1889,6 +1963,9 @@ def main() -> None:
               "(shade, kernel route); ms and plain_ms on its first shadow "
               "batch; max_abs_err is over bits: 1 if any differs",
               bits_differ_from_plain=k5_frac, lit_share=lit_share,
+              lanes_used={s: [x["used"] for x in v]
+                          for s, v in k5_lanes.items()},
+              row_order=[x["row_order"] for x in k5_lanes["pr6"]],
               launches_rank0_tp2_frame=tp_outs[0]["frame_counts"][6],
               launches_rank0_tp2_5_train_steps=tp_outs[0]["step_counts"][6],
               dp2_two_ranks_one_card_frame_ms=ranks["dp=2"]["frame_ms"],

@@ -1,30 +1,57 @@
-"""Device times of the large-scene path's kernels on one NVIDIA GPU.
+"""Device times of the port's kernels on one NVIDIA GPU, old beside new.
 
-    python3 chip_timing.py [--tag NAME] [--out FILE]
+    python3 chip_timing.py [--tag NAME] [--out FILE] [--npz FILE]
+    python3 chip_timing.py --split [--tag NAME] [--out FILE]
+    python3 chip_timing.py --compare A.npz B.npz
 
-Times, on the scene and configs of ``chip_smoke.py`` (the JAX package's
-``bench.py:dense_scene(8192)`` at 128x128, 2x2 AA, 3 samples, 2 bounces;
-at 512x512 with 1 AA ray; the Cornell box at full_1024):
+The default pass times, on the scenes and configs of ``chip_smoke.py``
+(the JAX package's ``bench.py:dense_scene(8192)`` at 128x128, 2x2 AA, 3
+samples, 2 bounces; at 512x512 with 1 AA ray; the Cornell box at
+full_1024; the mirror boxes past 16 bounces):
 
 - the streamed forward kernel (K3f) as ``render()`` launches it (quads)
   and as ``train_step`` launches it (the record, no quads), and at 512x512;
-- the streamed backward kernel (K3b) and the whole-table backward kernel
-  (K2, at full_1024) at their default depth;
+- the whole-table backward (K2) at full_1024, its deep instance on the
+  mirror box at 512x512 and 32 bounces, and the whole-table backward past
+  32 objects (K2', 600 triangles at the dense config); the streamed
+  backward (K3b) at dense_8192 and its deep instance on the 600-triangle
+  mirror box at 256x256; each as the kernels' device time and as every
+  device kernel of one backward call;
+- K7, the structure twin of K2, at full_1024;
+- the partial-scan kernels K4 (nearest hit) and K5 (occlusion) on the ray
+  batches of the dense_8192 frame through the kernel route;
 - the segmented sum: its wrapper (CUDA events), and within one call each
-  device kernel it launches (the sort's, ``searchsorted``'s and its own)
-  beside the host's share, and ``index_add_`` on the same rows;
+  device kernel it launches beside the host's share, and ``index_add_`` on
+  the same rows;
 - a dense_8192 ``train_step``.
 
-It imports ``uob_raytracer_tpu_torch`` from the directory it sits in and
-uses only wrapper calls that every version of the port has, so the same
-file copied into a checkout of an earlier commit times that commit's
-kernels: run parent, change, change, parent on one card, one after
-another, to compare them. Prints the card's name and power limit, then one JSON line;
-``--out`` writes that line to a file too. Exits non-zero without a card.
+``--npz`` saves K5's bits on the frame's three occlusion batches and K2's
+gradients and replayed image at full_1024 and on the mirror box, so that
+two runs (parent and change) can be compared bit for bit with
+``--compare``, which needs no card.
+
+``--split`` measures what sets the gaps of K2 and K5 to their bounds
+instead: K7 beside its split instances (no warp shuffles; no chain
+storage and no bounce sweeps; ptxas held to 4 and to 5 blocks an SM),
+each with its ptxas registers, beside K2, and the record's chain share
+and scatter shuffles (``flops.chain_share``, ``flops.scatter_work``) at
+full_1024; and on the three occlusion batches, each ray's first occluding
+row (``flops.first_occluder``), the lane-rows a thread per ray uses
+(``flops.occluded_lanes``) and K5's device time beside K4's on the same
+rays.
+
+It imports ``uob_raytracer_tpu_torch`` from the directory it sits in and,
+in the default pass, uses only wrapper calls that every version of the
+port since PR 6 has, so the same file copied into a checkout of an earlier
+commit times that commit's kernels: run parent, change, change, parent on
+one card, one after another, to compare them. Prints the card's name and
+power limit, then one JSON line; ``--out`` appends that line to a file
+too. Exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -35,8 +62,9 @@ import numpy as np
 import torch
 
 import uob_raytracer_tpu_torch as rt
-from uob_raytracer_tpu_torch import RenderConfig
-from uob_raytracer_tpu_torch.kernels import render_bwd, render_fwd
+from uob_raytracer_tpu_torch import RenderConfig, flops
+from uob_raytracer_tpu_torch.kernels import (bwd_twin, partial, render_bwd,
+                                             render_fwd)
 from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads
 from uob_raytracer_tpu_torch.parallel import train_step
 
@@ -45,6 +73,7 @@ CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
                        shadow_samples=3, bounces=2)
 CFG_512 = RenderConfig(width=512, height=512, aa_x=1, aa_y=1,
                        shadow_samples=3, bounces=2)
+MIRROR_FOCAL = 4400.0
 
 
 def dense_scene(n_tri: int, seed: int = 1):
@@ -61,6 +90,22 @@ def dense_scene(n_tri: int, seed: int = 1):
          c + rng.uniform(0.01, 0.05, (extra, 3)).astype(np.float32)], axis=1)
     return rt.add_triangles(base, verts, np.full((extra, 3), 0.6, np.float32),
                             np.ones((extra,), np.float32))
+
+
+def mirror_box(scene):
+    """``chip_smoke.mirror_box``: the five walls mirrored, the camera inside
+    at (0, -0.3, 0) looking along x."""
+    mat = scene.tri_mat.clone()
+    mat[:10] = 0.0
+    return dataclasses.replace(
+        scene, tri_mat=mat,
+        camera_pos=torch.tensor([0.0, -0.3, 0.0], device=mat.device),
+        yaw=torch.tensor(np.pi / 2, dtype=torch.float32, device=mat.device))
+
+
+def mirror_cfg(size: int) -> RenderConfig:
+    return RenderConfig(width=size, height=size, aa_x=1, aa_y=1,
+                        shadow_samples=2, bounces=32, focal_length=MIRROR_FOCAL)
 
 
 def seeded(shape, seed: int) -> torch.Tensor:
@@ -87,45 +132,150 @@ def event_ms(fn, warmup: int = 2, n: int = 5) -> float:
 
 def device_kernels(fn, n: int = 10) -> dict:
     """{kernel name: mean device ms per call of fn} over n calls, from
-    torch.profiler (the names of the device kernels it launched)."""
+    torch.profiler (the names of the device kernels it launched); a
+    session in which the tracer kept no device record is run again, up to
+    three times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for k in prof.key_averages():
-        if (getattr(k, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and k.self_device_time_total > 0):
-            out[k.key] = k.self_device_time_total / n / 1000.0
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for k in prof.key_averages():
+            if (getattr(k, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and k.self_device_time_total > 0):
+                out[k.key] = k.self_device_time_total / n / 1000.0
+        if out:
+            break
     return out
 
 
-def kernel_ms(kernels: dict, name: str) -> float:
-    """Device ms per call of the kernels whose name holds ``name``."""
-    hits = [v for k, v in kernels.items() if name in k]
+def kernel_ms(kernels: dict, *names: str) -> float:
+    """Device ms per call of the kernels whose name holds one of ``names``."""
+    hits = [v for k, v in kernels.items() if any(n in k for n in names)]
     if not hits:
-        raise AssertionError(f"no {name} kernel among {sorted(kernels)}")
+        raise AssertionError(f"no {names} kernel among {sorted(kernels)}")
     return sum(hits)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tag", default=os.path.basename(ROOT))
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_timing: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    out = {"tag": args.tag, "card": card, "source": ROOT}
+# the whole-table backward's kernels: since PR 7 the chain-free launch too
+K2_NAMES = ("render_bwd_kernel", "render_bwd_free_kernel")
 
+
+def recorded_batches(scene, cfg):
+    """The argument tuples of every ``nearest_tris`` and ``occluded_tris``
+    call of one frame through the kernel route (``chip_smoke.py``'s
+    ``recorded_frame``)."""
+    calls = {"nearest": [], "occluded": []}
+    real = partial.nearest_tris, partial.occluded_tris
+
+    def keep(name, fn):
+        def wrapper(*args):
+            calls[name].append(tuple(a.detach() for a in args))
+            return fn(*args)
+        return wrapper
+
+    partial.nearest_tris = keep("nearest", real[0])
+    partial.occluded_tris = keep("occluded", real[1])
+    try:
+        with torch.no_grad():
+            render_fwd.render_flat(scene, cfg, tri_pass="kernel")
+    finally:
+        partial.nearest_tris, partial.occluded_tris = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def backward_times(out: dict, key: str, fn, names, n: int = 10) -> None:
+    """The kernels' device ms (their sum, and each), and every device
+    kernel of one call."""
+    k = device_kernels(fn, n)
+    out[f"{key}_ms"] = kernel_ms(k, *names)
+    out[f"{key}_kernels_ms"] = {name: v for name, v in k.items()
+                                if any(n in name for n in names)}
+    out[f"{key}_all_device_ms"] = sum(k.values())
+
+
+def twin_full_1024(cornell, res):
+    """K7 sized to K2 on the full_1024 record (as ``chip_smoke.py``)."""
+    cfg = RenderConfig()
+    k2 = flops.kernel_resources("render_bwd_kernel<false>")
+    targets = flops.bwd_twin_targets(cornell, cfg, res)
+    return flops.build_bwd_structure_twin(cornell, cfg, res, **targets,
+                                          target_registers=k2["registers"])
+
+
+def split_pass(out: dict) -> None:
+    """What sets the gaps of K2 and K5 (see the module docstring)."""
+    cornell = rt.cornell_box()
+    cfg = RenderConfig()
+    res = render_fwd.render_fused_res(cornell, cfg, quads=None)[2]
+    g = seeded((1024, 1024, 3), 11)
+    twin = twin_full_1024(cornell, res)
+    if twin["n_pool"] != bwd_twin.SPLIT_POOL:
+        raise AssertionError(f"K7 took pool {twin['n_pool']}; the split "
+                             f"instances are built for {bwd_twin.SPLIT_POOL}")
+    table = bwd_twin.twin_table(cornell, cfg)
+    g_t = torch.full((1024, 1024, 3), 1e-3, device="cuda")
+    sizing = {f: twin[f] for f in ("n_main", "n_step", "slots", "divs",
+                                   "n_pool")}
+    k2 = {"ms": kernel_ms(device_kernels(lambda: render_bwd.render_replay_bwd(
+        cornell, cfg, res, g)), *K2_NAMES),
+          **flops.kernel_resources("render_bwd_kernel<false>")}
+    rows = {"K2": k2, "K7": {
+        "ms": kernel_ms(device_kernels(twin["run"]), "bwd_twin_kernel"),
+        **flops.kernel_resources(bwd_twin.symbol(twin["n_pool"]))}}
+    for name, (_, symbol) in bwd_twin.SPLITS.items():
+        def run(s=name):
+            return bwd_twin.bwd_twin(table, g_t, res, cfg, sizing, _split=s)
+        sums, _ = run()
+        if not torch.isfinite(sums).all():
+            raise AssertionError(f"K7 split {name}: sums not finite")
+        rows[f"K7 {name}"] = {
+            "ms": kernel_ms(device_kernels(run), "bwd_twin_split_kernel"),
+            **flops.kernel_resources(symbol)}
+    out["k2_split"] = rows
+    out["chain_share"] = flops.chain_share(cornell, cfg, res)
+    out["scatter_work"] = {s: flops.scatter_work(cornell, cfg, res, s)
+                           for s in ("pr6", "pr7")}
+
+    big = dense_scene(8192)
+    calls = recorded_batches(big, CFG_BIG)
+    table4 = calls["nearest"][0][:6]
+    k5 = []
+    for i, args in enumerate(calls["occluded"]):
+        v0, e1, e2, mat, start, d, r2 = args
+        first = flops.first_occluder(v0, e1, e2, mat, start, d, r2)
+        bits = partial.occluded_tris(*args)
+        lit = first >= v0.shape[0]
+        row = {
+            "rays": int(start.shape[0]),
+            "occluded_share_plain": 1.0 - lit.float().mean().item(),
+            "bits_differ_from_first_occluder": (
+                bits != ~lit).float().mean().item(),
+            "mean_first_row_occluded": first[~lit].float().mean().item(),
+            "lanes_pr6": flops.occluded_lanes(first, v0.shape[0], "pr6"),
+            "lanes_pr7": flops.occluded_lanes(first, v0.shape[0], "pr7"),
+            "k5_ms": kernel_ms(device_kernels(
+                lambda a=args: partial.occluded_tris(*a)),
+                "occluded_tris_kernel"),
+            "k4_same_rays_ms": kernel_ms(device_kernels(
+                lambda s=start, dd=d: partial.nearest_tris(*table4, s, dd)),
+                "nearest_tris_kernel"),
+        }
+        row["bound_ms_measured_peak_28.32T"] = flops.bound(
+            *flops.occluded_work(v0.shape[0], bits), peak_fp32=28.32e12)[0]
+        k5.append(row)
+    out["k5_split"] = k5
+
+
+def default_pass(out: dict, npz: str | None) -> None:
+    """The device times of the kernels old beside new (module docstring)."""
+    saved = {}
     big = dense_scene(8192)
     q_big = detect_shadow_quads(big)
     res_t = render_fwd.render_fused_res(big, CFG_BIG, quads=None)[2]
@@ -144,6 +294,7 @@ def main() -> None:
         big, CFG_BIG, res_t, g_big))
     out["k3b_ms"] = kernel_ms(k, "render_bwd_streamed_kernel")
     out["k3b_segment_sum_ms"] = kernel_ms(k, "segment_sum")
+    out["k3b_all_device_ms"] = sum(k.values())
 
     # the segmented sum on the sites of that record, split
     ids = render_bwd.site_ids(res_t)
@@ -157,29 +308,109 @@ def main() -> None:
     out["segment_sum_wrapper_ms"] = event_ms(seg, 3, 9)
     out["segment_sum_host_ms"] = (out["segment_sum_wrapper_ms"]
                                   - out["segment_sum_device_ms"])
-    out["sort_ms"] = event_ms(lambda: torch.sort(ids, stable=True), 3, 9)
-    sorted_ids = torch.sort(ids, stable=True)[0]
-    out["searchsorted_ms"] = event_ms(lambda: torch.searchsorted(
-        sorted_ids, torch.arange(n_tri + 1, dtype=torch.int32,
-                                 device="cuda")), 3, 9)
     out["index_add_ms"] = event_ms(lambda: render_bwd.segment_sum_plain(
         ids, rows, n_tri), 3, 9)
-    out["sites"] = ids.numel()
-    out["live_sites"] = int(((ids >= 0) & (ids < n_tri)).sum())
-    out["longest_run"] = int(torch.bincount(
-        ids[(ids >= 0) & (ids < n_tri)].long()).max())
 
     target = rt.render_image(big, CFG_BIG) * 0.9
     out["train_step_ms"] = event_ms(lambda: train_step(
         big, target, CFG_BIG, lr=1e-3, trainable=("light_pos", "tri_rgb")))
 
+    # the partial scans on the kernel route's batches
+    calls = recorded_batches(big, CFG_BIG)
+    out["k4_ms"] = [kernel_ms(device_kernels(
+        lambda a=a: partial.nearest_tris(*a)), "nearest_tris_kernel")
+        for a in calls["nearest"]]
+    out["k5_ms"] = [kernel_ms(device_kernels(
+        lambda a=a: partial.occluded_tris(*a)), "occluded_tris_kernel")
+        for a in calls["occluded"]]
+    for i, a in enumerate(calls["occluded"]):
+        saved[f"k5_bits_{i}"] = partial.occluded_tris(*a).cpu().numpy()
+
+    # the whole-table backward: full_1024, deep on the mirror box, K2'
     cornell = rt.cornell_box()
     cfg = RenderConfig()
     res = render_fwd.render_fused_res(cornell, cfg, quads=None)[2]
     g = seeded((1024, 1024, 3), 11)
-    k = device_kernels(lambda: render_bwd.render_replay_bwd(
-        cornell, cfg, res, g))
-    out["k2_full_1024_ms"] = kernel_ms(k, "render_bwd_kernel")
+    backward_times(out, "k2_full_1024", lambda: render_bwd.render_replay_bwd(
+        cornell, cfg, res, g), K2_NAMES)
+    out["k2_full_1024_wrapper_ms"] = event_ms(
+        lambda: render_bwd.render_replay_bwd(cornell, cfg, res, g), 2, 7)
+    mirror = mirror_box(cornell)
+    cfg_m = mirror_cfg(512)
+    res_m = render_fwd.render_fused_res(mirror, cfg_m)[2]
+    g_m = seeded((512, 512, 3), 71)
+    backward_times(out, "k2_deep_mirror", lambda: render_bwd.render_replay_bwd(
+        mirror, cfg_m, res_m, g_m), K2_NAMES, n=5)
+    for key, sc, c, r, gg in (("full_1024", cornell, cfg, res, g),
+                              ("mirror", mirror, cfg_m, res_m, g_m)):
+        bar, img = render_bwd.render_replay_bwd(sc, c, r, gg,
+                                                return_primal=True)
+        saved[f"k2_{key}_img"] = img.cpu().numpy()
+        for f in dataclasses.fields(bar):
+            saved[f"k2_{key}_grad_{f.name}"] = getattr(bar, f.name).cpu().numpy()
+    d600 = dense_scene(600)
+    res6 = render_fwd.render_fused_res(d600, CFG_BIG, _kernel="whole")[2]
+    g6 = seeded((128, 128, 3), 61)
+    backward_times(out, "k2p_600", lambda: render_bwd.render_replay_bwd(
+        d600, CFG_BIG, res6, g6, _kernel="whole"), K2_NAMES)
+    m600 = mirror_box(d600)
+    cfg_m6 = mirror_cfg(256)
+    res_m6 = render_fwd.render_fused_res(m600, cfg_m6)[2]
+    g_m6 = seeded((256, 256, 3), 71)
+    backward_times(out, "k3b_deep_mirror", lambda: render_bwd.render_replay_bwd(
+        m600, cfg_m6, res_m6, g_m6), ("render_bwd_streamed_kernel",), n=5)
+
+    twin = twin_full_1024(cornell, res)
+    out["k7_full_1024_ms"] = kernel_ms(device_kernels(twin["run"]),
+                                       "bwd_twin_kernel")
+    out["k7_pool"] = twin["n_pool"]
+    out["k2_resources"] = flops.kernel_resources("render_bwd_kernel<false>")
+    if npz:
+        os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
+        np.savez(npz, **saved)
+        out["npz"] = npz
+
+
+def compare(a: str, b: str) -> dict:
+    """Per array of two ``--npz`` files: bit-equal, the worst absolute
+    difference, and max|a-b| / max(max|a|, 1)."""
+    out = {}
+    with np.load(a) as za, np.load(b) as zb:
+        for k in sorted(set(za.files) & set(zb.files)):
+            x, y = np.atleast_1d(za[k]), np.atleast_1d(zb[k])
+            diff = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            worst = float(diff.max()) if diff.size else 0.0
+            scale = max(float(np.abs(x).max()) if x.size else 0.0, 1.0)
+            out[k] = {"bit_equal": bool(np.array_equal(
+                x.view(np.uint8), y.view(np.uint8))),
+                      "max_abs": worst, "rel": worst / scale}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tag", default=os.path.basename(ROOT))
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--npz", default=None)
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
+    args = ap.parse_args()
+    if args.compare:
+        out = {"compare": args.compare, **compare(*args.compare)}
+    else:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_timing: no CUDA device")
+        card = subprocess.run(
+            ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(card, flush=True)
+        out = {"tag": args.tag, "card": card, "source": ROOT,
+               "pass": "split" if args.split else "default"}
+        if args.split:
+            split_pass(out)
+        else:
+            default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

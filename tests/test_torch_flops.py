@@ -339,6 +339,226 @@ def test_twin_sizing_is_refused_past_the_caps(twin_case):
 
 
 # ---------------------------------------------------------------------------
+# The counts that explain K2's and K5's gaps, against brute-force loops
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cornell_16():
+    """A 16x16 Cornell record at full_1024's settings (2x2 AA, 10 bounces):
+    the port's plain forward on the CPU."""
+    from uob_raytracer_tpu_torch.kernels.render_fwd import render_fused_res_plain
+    scene = trt.cornell_box(device="cpu")
+    cfg = trt.RenderConfig(width=16, height=16)
+    return scene, cfg, render_fused_res_plain(scene, cfg)[2]
+
+
+def _chain_of(scene, cfg, res):
+    """[A][pixel] -> has a chain, ray by ray."""
+    mat = torch.cat([scene.tri_mat, scene.sph_mat]).tolist()
+    pid = res.prim_id.reshape(res.prim_id.shape[0], -1).tolist()
+    return [[cfg.bounces > 0 and i >= 0 and mat[i] <= 0.0 for i in row]
+            for row in pid]
+
+
+def test_chain_share_matches_brute_force(cornell_16):
+    scene, cfg, res = cornell_16
+    chain = _chain_of(scene, cfg, res)
+    A, n = len(chain), len(chain[0])
+    pix = [any(chain[a][p] for a in range(A)) for p in range(n)]
+    warps = [any(pix[w:w + 32]) for w in range(0, n, 32)]
+    got = flops.chain_share(scene, cfg, res)
+    assert got["rays"] == sum(map(sum, chain)) / (A * n)
+    assert got["pixels"] == sum(pix) / n
+    assert got["warps"] == sum(warps) / len(warps)
+    assert 0.0 < got["rays"] < got["pixels"] <= got["warps"] < 1.0
+    assert got["steps_per_ray"] == flops.chain_steps(scene, cfg, res) / (A * n)
+    none = flops.chain_share(scene, trt.RenderConfig(width=16, height=16,
+                                                     bounces=0), res)
+    assert none["rays"] == none["pixels"] == none["warps"] == 0.0
+
+
+def _distinct(ids):
+    return len({i for i in ids if i >= 0})
+
+
+@pytest.mark.parametrize("scheme", ["pr6", "pr7"])
+def test_scatter_work_matches_brute_force(cornell_16, scheme):
+    scene, cfg, res = cornell_16
+    A = res.prim_id.shape[0]
+    pid = res.prim_id.reshape(A, -1).tolist()
+    n = len(pid[0])
+    bid = res.bounce_id.reshape(cfg.bounces, A, n).tolist()
+    chain = _chain_of(scene, cfg, res)
+    pix = [any(chain[a][p] for a in range(A)) for p in range(n)]
+    distinct = []          # per warp-site that scatters
+
+    def site(ids):
+        d = _distinct(ids)
+        if d:
+            distinct.append(d)
+
+    def carried(warps_pixels, ids_of):
+        # a lane carries its primary row while the object repeats
+        for lanes in warps_pixels:
+            carry = [-1] * len(lanes)
+            for a in range(A):
+                new = [ids_of(a, p) for p in lanes]
+                site([c if c >= 0 and x >= 0 and x != c else -1
+                      for c, x in zip(carry, new)])
+                carry = [x if x >= 0 else c for c, x in zip(carry, new)]
+            site(carry)
+
+    if scheme == "pr6":
+        n_warps = 0
+        for w in range(0, n, 32):
+            lanes = range(w, min(w + 32, n))
+            n_warps += 1
+            for a in range(A):
+                site([pid[a][p] for p in lanes])
+                for k in range(cfg.bounces):
+                    site([bid[k][a][p] for p in lanes])
+    else:
+        free = [list(range(w, min(w + 32, n))) for w in range(0, n, 32)]
+        carried(free, lambda a, p: -1 if pix[p] else pid[a][p])
+        listed = [p for p in range(n) if pix[p]]
+        chained = [listed[w:w + 32] for w in range(0, len(listed), 32)]
+        for lanes in chained:
+            for a in range(A):
+                site([pid[a][p] for p in lanes])
+                for k in range(cfg.bounces):
+                    site([bid[k][a][p] for p in lanes])
+        n_warps = len(free) + len(chained)
+    per_id, cam = 1 + 16 * 5, 21 * 5
+    got = flops.scatter_work(scene, cfg, res, scheme)
+    assert got["sites"] == len(distinct)
+    assert got["distinct"] == sum(distinct)
+    assert got["scatter"] == per_id * sum(distinct)
+    assert got["camera"] == cam * n_warps
+    assert got["per_ray"] == (got["scatter"] + got["camera"]) / (A * n)
+
+
+def test_scatter_work_pr7_issues_fewer_shuffles(cornell_16):
+    scene, cfg, res = cornell_16
+    old, new = (flops.scatter_work(scene, cfg, res, s) for s in ("pr6", "pr7"))
+    assert new["scatter"] < old["scatter"] and new["sites"] < old["sites"]
+
+
+def occlusion_batch(kind: str, n_rays: int, n_tri: int, seed: int = 0):
+    """A shadow-ray batch and a shard, made with numpy: rays from z = 0 up
+    to a light at z = 1, filler rows off every path (z = 3), and
+    "all_lit": nothing else; "row0": row 0 covers every ray;
+    "alternating": even rays meet row n_tri // 2, odd rays nothing;
+    "neighbours": even rays meet row 3, odd rays only row n_tri - 2 (a
+    neighbour's occluder is not theirs), and row n_tri - 1, glass, covers
+    all and casts no shadow; "random": random triangles, a tenth glass.
+    Returns (v0, e1, e2, mat, start, d, radius_sq) as CPU tensors."""
+    rng = np.random.RandomState(seed)
+    start = np.zeros((n_rays, 3), F)
+    start[:, 0] = rng.uniform(-0.9, 0.9, n_rays)
+    start[:, 1] = rng.uniform(-0.4, 0.4, n_rays)
+    if kind in ("alternating", "neighbours"):
+        start[0::2, 0] = -np.abs(start[0::2, 0]) - 0.05
+        start[1::2, 0] = np.abs(start[1::2, 0]) + 0.05
+    d = np.zeros((n_rays, 3), F)
+    d[:, 2] = 1.0
+    d[:, :2] = rng.uniform(-0.01, 0.01, (n_rays, 2))
+    r2 = np.sum(d * d, axis=1).astype(F)
+    c = rng.uniform(-1, 1, (n_tri, 3)).astype(F)
+    c[:, 2] = 3.0
+    v = np.stack([c, c + F([0.01, 0, 0]), c + F([0, 0.01, 0])], 1)
+    mat = np.ones(n_tri, F)
+    cover = np.array([[-9, -9, 0.5], [30, -9, 0.5], [-9, 30, 0.5]], F)
+    left = np.array([[0, -9, 0.5], [0, 9, 0.5], [-20, 0, 0.5]], F)
+    if kind == "row0":
+        v[0] = cover
+    elif kind == "alternating":
+        v[n_tri // 2] = left
+    elif kind == "neighbours":
+        v[3] = left - F([0, 0, 0.1])
+        v[n_tri - 2] = cover + F([0, 0, 0.1])
+        v[n_tri - 1] = cover
+        mat[n_tri - 1] = -1.0
+    elif kind == "random":
+        c = rng.uniform(-1, 1, (n_tri, 3)).astype(F)
+        c[:, 2] = rng.uniform(0.1, 0.9, n_tri)
+        v = np.stack([c, c + rng.uniform(0.05, 0.4, (n_tri, 3)).astype(F),
+                      c + rng.uniform(0.05, 0.4, (n_tri, 3)).astype(F)], 1)
+        mat = np.where(rng.uniform(size=n_tri) < 0.1, -1.0, 1.0).astype(F)
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], mat, start, d, r2)]
+    return tuple(t)
+
+
+OCC_CASES = [("all_lit", 70, 40), ("row0", 70, 40), ("alternating", 70, 40),
+             ("neighbours", 64, 300), ("random", 45, 37)]
+
+
+@pytest.mark.parametrize("kind,n_rays,n_tri", OCC_CASES)
+def test_first_occluder_matches_brute_force(kind, n_rays, n_tri):
+    from uob_raytracer_tpu_torch.kernels.partial import _shard
+    from uob_raytracer_tpu_torch.ops.intersect import tris_occlude
+    v0, e1, e2, mat, start, d, r2 = occlusion_batch(kind, n_rays, n_tri)
+    want = []
+    for i in range(n_rays):
+        first = n_tri
+        for j in range(n_tri):
+            ds = _shard(v0[j:j + 1], e1[j:j + 1], e2[j:j + 1], v0[j:j + 1],
+                        v0[j:j + 1], mat[j:j + 1])
+            if bool(tris_occlude(ds, start[i:i + 1], d[i:i + 1], r2[i:i + 1])):
+                first = j
+                break
+        want.append(first)
+    got = flops.first_occluder(v0, e1, e2, mat, start, d, r2)
+    assert got.tolist() == want
+    expect = {"all_lit": {n_tri}, "row0": {0},
+              "alternating": {n_tri // 2, n_tri}, "neighbours": {3, n_tri - 2}}
+    if kind in expect:
+        assert set(want) == expect[kind]
+
+
+def _lanes_brute(first, n_tri, scheme, tile=128, group=4):
+    """Lane-rows issued, warp by warp and tile by tile
+    (``flops.occluded_lanes``)."""
+    need = [n_tri if f >= n_tri else f + 1 for f in first]
+    if scheme == "pr6":
+        return sum(32 * max(need[w:w + 32]) for w in range(0, len(need), 32))
+    issued = 0
+    for w in range(0, len(first), 32):
+        for base in range(0, n_tri, tile):
+            n_rows = min(tile, n_tri - base)
+            longest = 0
+            for f in first[w:w + 32]:
+                if f < base:          # stopped in an earlier tile
+                    continue
+                rows = min(f - base + 1, n_rows)
+                longest = max(longest, -(-rows // group) * group)
+            issued += 32 * longest
+    return issued
+
+
+@pytest.mark.parametrize("scheme", ["pr6", "pr7"])
+@pytest.mark.parametrize("kind", ["all_lit", "row0", "alternating", "mixed"])
+def test_occluded_lanes_matches_brute_force(kind, scheme):
+    n_tri, n = 300, 300
+    rng = np.random.RandomState(5)
+    first = {"all_lit": [n_tri] * n, "row0": [0] * n,
+             "alternating": [n_tri if i % 2 else 17 for i in range(n)],
+             "mixed": list(np.where(rng.uniform(size=n) < 0.4,
+                                    rng.randint(0, n_tri, n), n_tri))}[kind]
+    got = flops.occluded_lanes(torch.tensor(first), n_tri, scheme, tile=64)
+    issued = _lanes_brute(first, n_tri, scheme, tile=64)
+    need = sum(n_tri if f >= n_tri else f + 1 for f in first)
+    lit = sum(f >= n_tri for f in first)
+    assert got["issued"] == issued and got["rows"] == need
+    assert got["used"] == need / issued
+    assert got["row_order"] == need / (lit * n_tri + (n - lit))
+    if kind == "all_lit":   # tiles of 64 rows: 300 = 4 x 64 + 44, whole steps
+        assert got["used"] == pytest.approx(n / (-(-n // 32) * 32))
+    if kind == "row0":
+        assert got["row_order"] == 1.0
+
+
+# ---------------------------------------------------------------------------
 # On the card (skip without one)
 # ---------------------------------------------------------------------------
 

@@ -36,6 +36,7 @@ from uob_raytracer_tpu_torch.ops.camera import gen_primary_rays
 from uob_raytracer_tpu_torch.ops.intersect import intersect, prepare_scene
 from uob_raytracer_tpu_torch.ops.shading import shade
 from conftest import assert_images_match
+from test_torch_flops import occlusion_batch
 from test_torch_streamed import scenes
 
 N_TRI, N_RAYS = 300, 1500      # 1,500 rays: a ragged last tile on both sides
@@ -304,3 +305,30 @@ def test_nearest_tris_backward_on_card(cuda_device, problem):
     for a, b, c in zip(*runs):
         assert torch.equal(a, b)          # two runs: the same bits
         assert ((a - c).abs().max() <= 1e-4 * max(c.abs().max().item(), 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n_rays,n_tri", [
+    ("all_lit", 256, 256),          # every ray scans every row
+    ("row0", 257, 390),             # every ray stops at row 0
+    ("alternating", 300, 520),      # half the lanes of every warp stop
+    ("neighbours", 256, 640),       # a neighbour's occluder is not a ray's own
+    ("random", 333, 700),           # n_rays, n_tri off 32 and 128
+    ("random", 61, 3),              # fewer rows than a step's group
+])
+def test_occluded_tris_on_card(cuda_device, kind, n_rays, n_tri):
+    """K5 against its plain version on batches that steer its loop:
+    whole warps lit, whole warps stopped at once, lanes stopping apart,
+    rays whose neighbours stop early on a row that does not occlude them
+    (each keeps scanning to its own occluder, past a glass row that casts
+    no shadow), ragged ends."""
+    ins = [x.to(cuda_device) for x in occlusion_batch(kind, n_rays, n_tri)]
+    before = tpartial.OCCLUDED_LAUNCHES
+    got = tpartial.occluded_tris(*ins)
+    torch.cuda.synchronize()
+    assert tpartial.OCCLUDED_LAUNCHES == before + 1
+    assert torch.equal(got, tpartial.occluded_tris_plain(*ins))
+    want = {"all_lit": 0.0, "row0": 1.0, "alternating": 0.5,
+            "neighbours": 1.0}
+    if kind in want:
+        assert got.float().mean().item() == want[kind]

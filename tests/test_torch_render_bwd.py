@@ -26,7 +26,7 @@ from uob_raytracer_tpu.kernels.render_bwd import render_replay_bwd as j_replay_b
 from uob_raytracer_tpu.kernels.render_fwd import render_fused_res as j_fused_res
 from uob_raytracer_tpu.render import render_image as j_render_image
 import uob_raytracer_tpu_torch as trt
-from uob_raytracer_tpu_torch import cli
+from uob_raytracer_tpu_torch import cli, flops
 from uob_raytracer_tpu_torch.kernels import render_bwd as tbwd
 from uob_raytracer_tpu_torch.kernels import render_fwd as tfwd
 from uob_raytracer_tpu_torch.ops.intersect import _sphere_roots, prepare_scene
@@ -487,3 +487,133 @@ def test_backward_in_row_bands_on_card(cuda_device, monkeypatch):
     assert _leafwise(one, two) <= 1e-5
     assert torch.equal(p_one, p_two)
     assert all(torch.equal(getattr(two, k), getattr(three, k)) for k in LEAVES)
+
+
+def _away_from_glass(sc, res, g):
+    """g with zeros on the pixels where a ray's path meets a glass object
+    (material -1) at its primary hit or a bounce step: the double
+    refraction's derivative there is held to 1e-3, the rest to 1e-5."""
+    mat = torch.cat([sc.tri_mat, sc.sph_mat])
+
+    def glass(ids):
+        return (ids >= 0) & (mat[ids.clamp(min=0).long()] == -1.0)
+
+    hit = glass(res.prim_id).any(dim=0)
+    if res.bounce_id.numel():
+        hit = hit | glass(res.bounce_id).any(dim=(0, 1))
+    return torch.where(hit[..., None], 0.0, g)
+
+
+@pytest.mark.parametrize("n_obj,kw,rows,want", [
+    (28, {}, 1024, True),                       # full_1024: 4.2 M rays
+    (28, {}, 64, False),                        # 64 of its rows: 262,144
+    (28, {"aa_x": 1, "aa_y": 1}, 1024, True),   # 1,048,576 rays
+    (28, {"aa_x": 1, "aa_y": 1}, 1023, False),
+    (28, {"bounces": 0}, 1024, False),          # no chain anywhere
+    (33, {}, 1024, False),                      # past 32 objects
+])
+def test_split_rule(n_obj, kw, rows, want):
+    """Which frames the whole-table backward splits into its chain-free
+    and chain launches (``render_bwd.splits``)."""
+    assert tbwd.splits(trt.RenderConfig(**kw), rows, n_obj) == want
+
+
+def _split_checks(sc, cfg, monkeypatch, seed, split=True):
+    """The whole-table backward as the card runs it: two runs bit-equal;
+    the replayed image bit-equal to one launch of the chain kernel over
+    every pixel (the design before the split) and its gradients within
+    1e-5; within 1e-5 of the plain version away from the glass interior
+    and 1e-3 with it. Returns the record."""
+    # these frames are small: split them all the same
+    monkeypatch.setattr(tbwd, "SPLIT_RAYS", 0)
+    _, _, res = tfwd.render_fused_res(sc, cfg)
+    g = torch.from_numpy(np.random.RandomState(seed).standard_normal(
+        (cfg.height, cfg.width, 3)).astype(np.float32)).to(sc.device)
+    before = (tbwd.LAUNCHES, tbwd.FREE_LAUNCHES)
+    got, primal = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    again = tbwd.render_replay_bwd(sc, cfg, res, g)
+    torch.cuda.synchronize()
+    split = split and cfg.bounces > 0
+    assert (tbwd.LAUNCHES, tbwd.FREE_LAUNCHES) == (
+        before[0] + 2, before[1] + (2 if split else 0))
+    assert all(torch.equal(getattr(got, k), getattr(again, k)) for k in LEAVES)
+    with monkeypatch.context() as m:
+        m.setattr(tbwd, "SPLIT_OBJECTS", 0)
+        one, p_one = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    assert torch.equal(primal, p_one)
+    assert _leafwise(one, got) <= 1e-5
+    ref, ref_primal = tbwd.render_replay_bwd_plain(sc, cfg, res, g,
+                                                   return_primal=True)
+    assert _leafwise(ref, got) <= 1e-3
+    assert torch.allclose(primal, ref_primal, atol=1e-4)
+    g0 = _away_from_glass(sc, res, g)
+    assert _leafwise(tbwd.render_replay_bwd_plain(sc, cfg, res, g0),
+                     tbwd.render_replay_bwd(sc, cfg, res, g0)) <= 1e-5
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounces", [0, 2, 10, tbwd.REG_BOUNCES + 1])
+def test_split_backward_on_card(cuda_device, monkeypatch, bounces):
+    """The chain-free launch and the chain launch on a 60x20 frame (a
+    ragged last block; past 16 bounces the deep instance): with bounces,
+    pixels whose AA rays mix chain and chain-free rays go whole to the
+    chain launch."""
+    sc = trt.cornell_box(device=cuda_device)
+    cfg = trt.RenderConfig(width=60, height=20, bounces=bounces)
+    res = _split_checks(sc, cfg, monkeypatch, seed=bounces)
+    chain = flops.chain_rays(sc, cfg, res).reshape(cfg.aa_rays, -1)
+    mixed = int((chain.any(dim=0) & ~chain.all(dim=0)).sum())
+    assert (mixed > 0) == (bounces > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["no chain", "every ray a chain"])
+def test_split_backward_extremes_on_card(cuda_device, monkeypatch, frame):
+    """No ray with a chain (no spheres: the chain launch finds an empty
+    list), and every ray with one (the mirror box with every object a
+    mirror: the chain-free launch runs no ray)."""
+    if frame == "no chain":
+        sc = trt.cornell_box(spheres=False, device=cuda_device)
+        cfg = trt.RenderConfig(width=64, height=16, bounces=10)
+        want = 0.0
+    else:
+        sc = mirror_box(trt.cornell_box(device=cuda_device))
+        sc = dataclasses.replace(sc, tri_mat=torch.zeros_like(sc.tri_mat),
+                                 sph_mat=torch.zeros_like(sc.sph_mat))
+        cfg = trt.RenderConfig(bounces=6, **dict(DEEP_KW, height=24))
+        want = 1.0
+    res = _split_checks(sc, cfg, monkeypatch, seed=3)
+    assert flops.chain_share(sc, cfg, res)["rays"] == want
+
+
+def strip_scene(device, n_strips: int = 137, width: float = 0.02):
+    """The Cornell box and 274 triangles (300 in all): 137 narrow vertical
+    strips across the view at z = -1.5, each a pair of triangles, so that
+    the 32 pixels of a warp's row meet 32 distinct objects at their
+    primary site (the dense scene of 300 triangles meets at most 12)."""
+    x0 = -n_strips * width / 2 + np.arange(n_strips) * width
+    lo, hi = np.full(n_strips, -1.5), np.full(n_strips, 1.5)
+    z = np.full(n_strips, -1.5)
+    a, b = np.stack([x0, lo, z], 1), np.stack([x0 + width, lo, z], 1)
+    c, d = np.stack([x0, hi, z], 1), np.stack([x0 + width, hi, z], 1)
+    v = np.concatenate([np.stack([a, b, c], 1),
+                        np.stack([b, d, c], 1)]).astype(np.float32)
+    rgb = np.random.RandomState(3).uniform(0.2, 0.9, (len(v), 3)).astype(
+        np.float32)
+    return trt.add_triangles(trt.cornell_box(device=device), v, rgb,
+                             np.ones(len(v), np.float32))
+
+
+@pytest.mark.cuda
+def test_backward_many_objects_a_warp_on_card(cuda_device, monkeypatch):
+    """302 objects (one launch of the chain kernel over every pixel, as
+    past 32 objects), with warps that meet 32 distinct objects at one
+    site: the scatter's loop over a warp's objects."""
+    sc = strip_scene(cuda_device)
+    cfg = trt.RenderConfig(width=64, height=16, shadow_samples=2, bounces=2)
+    res = _split_checks(sc, cfg, monkeypatch, seed=4, split=False)
+    pid = res.prim_id.reshape(cfg.aa_rays, -1, 32)
+    most = max(len({int(i) for i in w if i >= 0})
+               for a in pid.cpu() for w in a)
+    assert sc.num_triangles == 300 and most > 16

@@ -3,32 +3,36 @@
 // staged its tables and synchronised), not a header of declarations. The
 // code is shared as text because nvcc compiles it 19% slower (0.49 against
 // 0.41 ms on the full_1024 frame, H100) when it sits in a function, even
-// one forced inline. Every thread of the block runs it, threads past the
-// ragged edge included (they carry no ray but take part in the warp's
-// shuffles).
+// one forced inline. Every thread of the block runs it, threads without a
+// pixel included (they carry no ray but take part in the warp's shuffles).
 //
-// In scope where it is included: the kernel's template parameter bool
-// Deep (false: the register instance, whose bounce chain is a per-thread
-// array of kRegBounces steps; true: the deep instance, whose chain is the
-// device buffer float* chain of kChainFloats * bounces * the grid's
-// threads, laid out as DeepSteps says); Params P; const float* cam (the
-// staged camera row); the kernel's g_img, pid, lit_in, bid, img and chain
-// pointers; and three macros, undefined again after the include:
+// In scope where it is included:
+//   bool Chain (constexpr)   false: the chain-free instance, for pixels
+//                            none of whose rays bounces; no chain storage,
+//                            no forward or reverse sweep
+//   bool Deep (constexpr)    false: the register instance, whose bounce
+//                            chain is a per-thread array of kRegBounces
+//                            steps; true: the deep instance, whose chain is
+//                            the device buffer float* chain of kChainFloats
+//                            * bounces * chain_stride floats, laid out as
+//                            DeepSteps says (chain_stride: size_t, at least
+//                            the band's pixels)
+//   size_t n_pix, p; bool in_img   the band's pixel count; this thread's
+//                            pixel, and whether it has one (p < n_pix)
+//   Params P; const float* cam (the staged camera row); the kernel's g_img,
+//   pid, lit_in, bid, img and chain pointers; and four macros, undefined
+//   again after the include:
 //   REPLAY_LOAD_ROW(id)              the Row of object id (-1: the miss row)
 //   REPLAY_SCATTER(site, a, id, g)   adds RowGrad g to object id's cotangent
 //                                    for site (0 primary, 1 + k bounce step
 //                                    k) of AA ray a; id < 0: nothing to add;
 //                                    reached by all 32 lanes of the warp
+//   REPLAY_FLUSH()                   after the pixel's last ray: adds what
+//                                    REPLAY_SCATTER held back; all 32 lanes
 //   REPLAY_WCAM                      float[21]: the warp's summed camera
-//                                    cotangents (lane 0 writes)
+//                                    cotangents (the sums are added to it)
 // The replayed radiance goes to img when P.want_img.
 
-  const int lane = threadIdx.x & 31;
-  const size_t n_pix = (size_t)P.rows * P.width;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past the ragged edge stay: they carry no ray but take part in
-  // the warp's shuffles
-  const bool in_img = p < n_pix;
   const int py = in_img ? (int)(p / P.width) : 0;
   const int px = in_img ? (int)(p - (size_t)py * P.width) : 0;
 
@@ -50,11 +54,7 @@
   V3 img_acc = zero3();
   ChainSteps<Deep> saved;
   ChainIds<Deep> saved_id;
-  if constexpr (Deep) {
-    const size_t stride = (size_t)gridDim.x * blockDim.x;
-    saved = DeepSteps{chain + p, stride};
-    saved_id = DeepIds{reinterpret_cast<int*>(chain + kStepFloats * stride) + p, stride};
-  }
+  deep_chain<Deep>(saved, saved_id, chain, p, chain_stride);
 
   for (int a = 0; a < A; ++a) {
     const int id0 = in_img ? pid[a * n_pix + p] : -1;
@@ -81,7 +81,7 @@
     {
       V3 cur_d = d, cur_pos = ph.pos, cur_nrm = ph.nrm;
       float cur_mat = prow.mat, medium = P.ior_air;
-      bool active = prow.valid && prow.mat <= 0.0f;
+      bool active = Chain && prow.valid && prow.mat <= 0.0f;
       while (active && n_exec < P.bounces) {
         const Step s = step_geometry(P, cur_d, cur_pos, cur_nrm, cur_mat, medium);
         if (s.dead) break;  // the step changes nothing and retires the ray
@@ -169,78 +169,80 @@
 
     // --- reverse sweep over the chain, to the warp's deepest ray ---
     V3 dc_d = zero3(), dc_pos = zero3(), dc_nrm = zero3();
-    int k_max = n_exec;
+    if constexpr (Chain) {
+      int k_max = n_exec;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) k_max = max(k_max, __shfl_xor_sync(kFull, k_max, off));
-    for (int k = k_max - 1; k >= 0; --k) {
-      RowGrad gr = zero_grad();
-      int sid = -1;
-      if (k < n_exec) {
-        const auto sv = saved[k];
-        const V3 cur_d = make(sv[0], sv[1], sv[2]), cur_pos = make(sv[3], sv[4], sv[5]);
-        const V3 cur_nrm = make(sv[6], sv[7], sv[8]);
-        const float w_prev = sv[11];
-        const Step s = step_geometry(P, cur_d, cur_pos, cur_nrm, sv[9], sv[10]);
-        const Row row = REPLAY_LOAD_ROW(saved_id[k]);
-        const bool diffuse = row.valid && row.mat > 0.0f;
-        const bool cont = row.valid && row.mat <= 0.0f;
-        // which outputs of the step the later cotangents reach
-        V3 dh_pos = zero3(), dh_nrm = zero3(), dh_rgb = zero3(), dndirn = zero3();
-        if (diffuse) {
-          dh_pos = dt_pos, dh_nrm = dt_nrm, dh_rgb = dt_rgb;
-          dt_pos = dt_nrm = dt_rgb = zero3();
-        }
-        if (cont) {
-          dndirn = dc_d, dh_pos = dc_pos, dh_nrm = dc_nrm;
-          dc_d = dc_pos = dc_nrm = zero3();
-        }
-        V3 dnstart = zero3();
-        hit_bwd(row, s.nstart, s.ndirn, dh_pos, dh_nrm, dh_rgb, gr, dnstart, dndirn);
-        if (row.valid) sid = saved_id[k];
-        // ndirn = ndir * inv, inv = max(ndir.ndir, 1e-30)^(-1/2)
-        V3 dndir = scale(s.inv, dndirn);
-        const float dinv = dot(dndirn, s.ndir);
-        if (s.nd2raw >= 1e-30f)
-          dndir = add(dndir, scale(2.0f * (-0.5f * dinv * s.inv * s.inv * s.inv), s.ndir));
-        // nstart = cur_pos + bias * ndir
-        dc_pos = add(dc_pos, dnstart);
-        dndir = add(dndir, scale(P.bias, dnstart));
-        // weight = w_prev * w_step
-        float dc1a = 0.0f;
-        if (P.fresnel) {
-          const float dw_step = dw * w_prev;
-          dw = dw * s.w_step;
-          if (!s.use_refl) {
-            const float x2 = s.x * s.x;
-            dc1a = dw_step * (1.0f - s.r0f) * 5.0f * (x2 * x2);  // -drefl_w/dc1a * dw_step
+      for (int off = 16; off > 0; off >>= 1) k_max = max(k_max, __shfl_xor_sync(kFull, k_max, off));
+      for (int k = k_max - 1; k >= 0; --k) {
+        RowGrad gr = zero_grad();
+        int sid = -1;
+        if (k < n_exec) {
+          const auto sv = saved[k];
+          const V3 cur_d = make(sv[0], sv[1], sv[2]), cur_pos = make(sv[3], sv[4], sv[5]);
+          const V3 cur_nrm = make(sv[6], sv[7], sv[8]);
+          const float w_prev = sv[11];
+          const Step s = step_geometry(P, cur_d, cur_pos, cur_nrm, sv[9], sv[10]);
+          const Row row = REPLAY_LOAD_ROW(saved_id[k]);
+          const bool diffuse = row.valid && row.mat > 0.0f;
+          const bool cont = row.valid && row.mat <= 0.0f;
+          // which outputs of the step the later cotangents reach
+          V3 dh_pos = zero3(), dh_nrm = zero3(), dh_rgb = zero3(), dndirn = zero3();
+          if (diffuse) {
+            dh_pos = dt_pos, dh_nrm = dt_nrm, dh_rgb = dt_rgb;
+            dt_pos = dt_nrm = dt_rgb = zero3();
           }
-        }
-        float ddn = 0.0f;
-        if (s.use_refl) {
-          // refl = cur_d - (2 dn) cur_nrm
-          dc_d = add(dc_d, dndir);
-          dc_nrm = add(dc_nrm, scale(-2.0f * s.dn, dndir));
-          ddn = -2.0f * dot(dndir, cur_nrm);
-        } else {
-          // refr = nr cur_d + (nr c1a - c2) (-nflip)
-          const float sc = s.nr * s.c1a - s.c2;
-          dc_d = add(dc_d, scale(s.nr, dndir));
-          const float dsc = -dot(dndir, s.nflip);
-          const V3 dnflip = scale(-sc, dndir);
-          dc1a += s.nr * dsc;
-          if (!s.tir && !s.kz) {
-            // c2 = sqrt(k), k = 1 - nr^2 (1 - c1a^2)
-            const float dk = -dsc / (2.0f * s.c2);
-            dc1a += dk * (s.nr * s.nr) * (2.0f * s.c1a);
+          if (cont) {
+            dndirn = dc_d, dh_pos = dc_pos, dh_nrm = dc_nrm;
+            dc_d = dc_pos = dc_nrm = zero3();
           }
-          dc_nrm = add(dc_nrm, s.dn < 0.0f ? neg(dnflip) : dnflip);
+          V3 dnstart = zero3();
+          hit_bwd(row, s.nstart, s.ndirn, dh_pos, dh_nrm, dh_rgb, gr, dnstart, dndirn);
+          if (row.valid) sid = saved_id[k];
+          // ndirn = ndir * inv, inv = max(ndir.ndir, 1e-30)^(-1/2)
+          V3 dndir = scale(s.inv, dndirn);
+          const float dinv = dot(dndirn, s.ndir);
+          if (s.nd2raw >= 1e-30f)
+            dndir = add(dndir, scale(2.0f * (-0.5f * dinv * s.inv * s.inv * s.inv), s.ndir));
+          // nstart = cur_pos + bias * ndir
+          dc_pos = add(dc_pos, dnstart);
+          dndir = add(dndir, scale(P.bias, dnstart));
+          // weight = w_prev * w_step
+          float dc1a = 0.0f;
+          if (P.fresnel) {
+            const float dw_step = dw * w_prev;
+            dw = dw * s.w_step;
+            if (!s.use_refl) {
+              const float x2 = s.x * s.x;
+              dc1a = dw_step * (1.0f - s.r0f) * 5.0f * (x2 * x2);  // -drefl_w/dc1a * dw_step
+            }
+          }
+          float ddn = 0.0f;
+          if (s.use_refl) {
+            // refl = cur_d - (2 dn) cur_nrm
+            dc_d = add(dc_d, dndir);
+            dc_nrm = add(dc_nrm, scale(-2.0f * s.dn, dndir));
+            ddn = -2.0f * dot(dndir, cur_nrm);
+          } else {
+            // refr = nr cur_d + (nr c1a - c2) (-nflip)
+            const float sc = s.nr * s.c1a - s.c2;
+            dc_d = add(dc_d, scale(s.nr, dndir));
+            const float dsc = -dot(dndir, s.nflip);
+            const V3 dnflip = scale(-sc, dndir);
+            dc1a += s.nr * dsc;
+            if (!s.tir && !s.kz) {
+              // c2 = sqrt(k), k = 1 - nr^2 (1 - c1a^2)
+              const float dk = -dsc / (2.0f * s.c2);
+              dc1a += dk * (s.nr * s.nr) * (2.0f * s.c1a);
+            }
+            dc_nrm = add(dc_nrm, s.dn < 0.0f ? neg(dnflip) : dnflip);
+          }
+          // c1a = |dn|
+          ddn += s.dn > 0.0f ? dc1a : (s.dn < 0.0f ? -dc1a : 0.0f);
+          dc_d = add(dc_d, scale(ddn, cur_nrm));
+          dc_nrm = add(dc_nrm, scale(ddn, cur_d));
         }
-        // c1a = |dn|
-        ddn += s.dn > 0.0f ? dc1a : (s.dn < 0.0f ? -dc1a : 0.0f);
-        dc_d = add(dc_d, scale(ddn, cur_nrm));
-        dc_nrm = add(dc_nrm, scale(ddn, cur_d));
+        REPLAY_SCATTER(1 + k, a, sid, gr);
       }
-      REPLAY_SCATTER(1 + k, a, sid, gr);
     }
 
     // --- adjoint of the primary hit and the ray generation ---
@@ -264,17 +266,13 @@
     }
   }
 
+  REPLAY_FLUSH();
+
   if (P.want_img && in_img) {
     img[p * 3 + 0] = img_acc.x / fA;
     img[p * 3 + 1] = img_acc.y / fA;
     img[p * 3 + 2] = img_acc.z / fA;
   }
 
-  // --- camera cotangents: warp butterfly into the warp's 21 sums ---
-#pragma unroll
-  for (int i = 0; i < kCamCols; ++i) {
-    float s = dcam[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-    if (lane == 0) REPLAY_WCAM[i] = s;
-  }
+  // --- camera cotangents: the warp's 21 sums ---
+  warp_camera(REPLAY_WCAM, dcam);

@@ -9,7 +9,12 @@
 // both kernels include inside their __global__ function. The two kernels
 // differ only in where an object's row is read from and where a row's
 // cotangent goes. The rules that make the gradient the framework's are
-// listed at the top of render_bwd.cu.
+// listed at the top of render_bwd.cu. The warp's sums (warp_scatter,
+// warp_camera) stay a butterfly per column: a reduce-scatter (a lane keeps
+// half its columns at each level, 16 shuffles for an object's 16 columns
+// where these take 80) gave the same bits but ran 4-9% slower in K2's
+// launches, K2' and K3b, and 6% faster only in K3b's deep instance
+// (PERF.md, PR 7).
 #pragma once
 
 #include <cstdint>
@@ -125,6 +130,18 @@ template <bool Deep>
 using ChainSteps = std::conditional_t<Deep, DeepSteps, float[kRegBounces][kStepFloats]>;
 template <bool Deep>
 using ChainIds = std::conditional_t<Deep, DeepIds, int[kRegBounces]>;
+
+// Points the deep instance's chain storage at this thread's pixel p of
+// the buffer (stride: its length per float of a step); the register
+// instance's arrays need nothing.
+template <bool Deep>
+__device__ __forceinline__ void deep_chain(ChainSteps<Deep>& saved, ChainIds<Deep>& saved_id,
+                                           float* chain, size_t p, size_t stride) {
+  if constexpr (Deep) {
+    saved = DeepSteps{chain + p, stride};
+    saved_id = DeepIds{reinterpret_cast<int*>(chain + kStepFloats * stride) + p, stride};
+  }
+}
 
 // The row that stands for a miss (id -1).
 __device__ __forceinline__ Row miss_row() {
@@ -306,7 +323,8 @@ __device__ void hit_bwd(const Row& r, V3 start, V3 d, V3 dpos, V3 dnrm, V3 drgb,
 }
 
 // One warp sums the row cotangents of the lanes that hit the same object
-// and lane 0 adds each sum to the warp's accumulator: fixed order, no
+// and lane 0 adds each sum to the warp's accumulator: per distinct object,
+// a 5-level xor butterfly for each of its 16 columns. Fixed order, no
 // atomics. id < 0: this lane has nothing to add. All 32 lanes call it.
 __device__ void warp_scatter(float* wacc, int id, const RowGrad& g) {
   const int lane = threadIdx.x & 31;
@@ -325,6 +343,30 @@ __device__ void warp_scatter(float* wacc, int id, const RowGrad& g) {
     }
     todo &= ~__ballot_sync(kFull, m);
   }
+}
+
+// The warp's sums of the 21 camera columns, a 5-level butterfly each,
+// added by lane 0 to the warp's 21 accumulators. All 32 lanes call it.
+__device__ __forceinline__ void warp_camera(float* wcam, const float (&dcam)[kCamCols]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kCamCols; ++i) {
+    float s = dcam[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+    if (lane == 0) wcam[i] += s;
+  }
+}
+
+__device__ __forceinline__ RowGrad add_grad(const RowGrad& a, const RowGrad& b) {
+  RowGrad r;
+  r.v0 = add(a.v0, b.v0);
+  r.e1 = add(a.e1, b.e1);
+  r.e2 = add(a.e2, b.e2);
+  r.n = add(a.n, b.n);
+  r.rgb = add(a.rgb, b.rgb);
+  r.r2 = a.r2 + b.r2;
+  return r;
 }
 
 // What one bounce step computes from its saved inputs, kept for the adjoint.

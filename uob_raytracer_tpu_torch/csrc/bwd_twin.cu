@@ -9,8 +9,12 @@
 // operation count and dependency depth; the backward's time over it says
 // how much of the backward's gap to its bound is its arithmetic.
 //
-// It mirrors the port's K2 as built (render_bwd.cu, bwd_body.cuh), not the
-// TPU twin's presence-bit tile walk:
+// It mirrors one launch of the port's K2 chain kernel over every pixel
+// (render_bwd.cu, bwd_body.cuh: the design before PR 7 split K2 by the
+// record into a chain-free launch and a chain launch, and the one K2 keeps
+// past 32 objects), with K2's scatter and camera sums; not the TPU twin's
+// presence-bit tile walk. So twin / K2 is now the one-launch
+// structure against the split K2:
 // - 128 threads a block, one thread per pixel, looping over its A rays;
 //   threads past the ragged edge stay for the warp's shuffles;
 // - the unified n_obj x 17 object table staged in shared memory, a row
@@ -23,7 +27,8 @@
 // - the warp's 16-column shuffle butterfly per object it hit, into per-warp
 //   accumulators in shared memory (warp_scatter of bwd_common.cuh, K2's
 //   own);
-// - the 21 camera columns, per-thread sums added by a butterfly at the end;
+// - the 21 camera columns, per-thread sums added by a butterfly at the end
+//   (warp_camera, K2's own);
 // - one partial row per block, [blocks, n_obj * 16 + 21], summed by the
 //   wrapper's torch.sum; the 3-float replayed image.
 // Column 15 of every scattered row is 1, so the partial sums count each
@@ -49,6 +54,14 @@
 // image. The pool size is a template parameter (a runtime-sized pool would
 // live in local memory): flops.build_bwd_structure_twin picks the smallest
 // instance whose ptxas registers reach the backward kernel's.
+//
+// The split instances (bwd_twin_split_kernel<Var, MinBlocks>, pool 64:
+// the pool K7 takes at full_1024) change one piece of that structure at a
+// time: no shuffles in the scatter and the camera sums, no chain storage
+// and no bounce sweeps, ptxas held to 4 or 5 blocks an SM. Their times
+// beside K7's (chip_timing.py --split) said where K2's time went and set
+// K2's redesign (PERF.md). The body is shared as text (twin_body.cuh) so
+// that K7 compiles as before.
 //
 // What bounds it: what bounds K2 — FP32 issue, the shuffle reductions and
 // the per-thread chain storage; the record it reads and the partials it
@@ -172,184 +185,68 @@ struct TreeSum<1> {
   static __device__ __forceinline__ void fold(float*) {}
 };
 
+// The split instances (bwd_twin_split_kernel<Var, MinBlocks>): the
+// pieces of K2's structure, one at a time, on K7's pool of kSplitPool.
+constexpr int kTwinAsK2 = 0;     // K2's structure
+constexpr int kTwinNoShfl = 1;   // no shuffles: lane 0 adds its own rows
+constexpr int kTwinNoChain = 2;  // no chain storage, no bounce sweeps
+constexpr int kSplitPool = 64;   // the pool K7 takes at full_1024
+
+// A row's scatter in instance Var: K2's warp_scatter, or, with no
+// shuffles, lane 0 adding its own row (the other lanes' rows are dropped).
+template <int Var>
+__device__ __forceinline__ void twin_scatter(float* wacc, int id, const RowGrad& g) {
+  if constexpr (Var == kTwinNoShfl) {
+    if ((threadIdx.x & 31) == 0 && id >= 0) {
+      const float v[kGradCols] = {g.v0.x, g.v0.y, g.v0.z, g.e1.x,  g.e1.y,  g.e1.z,
+                                  g.e2.x, g.e2.y, g.e2.z, g.n.x,   g.n.y,   g.n.z,
+                                  g.rgb.x, g.rgb.y, g.rgb.z, g.r2};
+#pragma unroll
+      for (int c = 0; c < kGradCols; ++c) wacc[id * kGradCols + c] += v[c];
+    }
+  } else {
+    warp_scatter(wacc, id, g);
+  }
+}
+
 template <int NPool>
 __global__ void __launch_bounds__(kThreads)
     bwd_twin_kernel(const float* __restrict__ table, const float* __restrict__ g_img,
                     const int* __restrict__ pid, const float* __restrict__ lit_in,
                     const int* __restrict__ bid, float* __restrict__ partial,
                     float* __restrict__ img, TwinDims D, TwinSizing T) {
-  extern __shared__ float smem[];
-  const int acc_cols = D.n_obj * kGradCols + kCamCols;
-  float* obj = smem;
-  float* acc = obj + D.n_obj * kObjCols;  // [kWarps][acc_cols]
-  for (int i = threadIdx.x; i < D.n_obj * kObjCols; i += blockDim.x) obj[i] = table[i];
-  for (int i = threadIdx.x; i < kWarps * acc_cols; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  float* wacc = acc + (threadIdx.x >> 5) * acc_cols;
+  constexpr int Var = kTwinAsK2;
+#include "twin_body.cuh"
+}
 
-  const int lane = threadIdx.x & 31;
-  const size_t n_pix = (size_t)D.rows * D.width;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_img = p < n_pix;
-  const float gx = in_img ? g_img[p * 3] : 0.0f;
-  const int A = D.aa;
-
-  float dcam[kCamCols];
-#pragma unroll
-  for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
-  float img_acc[3] = {0.0f, 0.0f, 0.0f};
-  float saved[kRegBounces][12];
-  int saved_id[kRegBounces];
-
-  for (int a = 0; a < A; ++a) {
-    const int id0 = in_img ? pid[a * n_pix + p] : -1;
-    const float lit = in_img ? lit_in[a * n_pix + p] : 0.0f;
-    float xs[kObjCols];
-    twin_row(obj, id0, xs);
-    const bool chain = id0 >= 0 && xs[15] <= 0.0f;
-    xs[0] = (xs[0] + lit * 1e-6f) + gx * 1e-3f;
-
-    float accs[kTwinSlots];
-    accs[0] = xs[0];
-#pragma unroll
-    for (int s = 1; s < kTwinSlots; ++s) accs[s] = xs[0] * (float)(1.0 + 1e-6 * s);
-
-    // --- first half of the main chain; the pool keeps its snapshots ---
-    float pool[NPool > 0 ? NPool : 1];
-#pragma unroll
-    for (int it = 0; it < kTwinHalf; ++it) {
-      const float x = xs[it % kObjCols];
-      float mids[kTwinSlots];
-#pragma unroll
-      for (int s = 0; s < kTwinSlots; ++s) mids[s] = accs[s];
-      if (it < T.n_half) run_slots(accs, mids, x, T.divs[it], T.slots[it]);
-#pragma unroll
-      for (int s = 0; s < kTwinSlots; ++s) {
-        const int j = 2 * (it * kTwinSlots + s);
-        if (j < NPool) pool[j] = accs[s];
-        if (j + 1 < NPool) pool[j + 1] = mids[s];
-      }
-    }
-    const float a_mid = accs[0];
-
-    // --- forward sweep: the steps the record says this ray ran ---
-    float carr = a_mid;
-    int n_exec = 0;
-    bool active = chain;
-    while (active && n_exec < D.bounces) {
-      const int idk = bid[((size_t)n_exec * A + a) * n_pix + p];
-      float row[kObjCols];
-      twin_row(obj, idk, row);
-      float* sv = saved[n_exec];
-#pragma unroll
-      for (int c = 0; c < 11; ++c) sv[c] = row[c];
-      sv[11] = carr;
-      saved_id[n_exec] = idk;
-      ++n_exec;
-      carr = carr + row[0];
-      active = idk >= 0 && row[15] <= 0.0f;
-    }
-
-    // --- reverse sweep, to the warp's deepest chain ---
-    float dcarr = carr;
-    int k_max = n_exec;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) k_max = max(k_max, __shfl_xor_sync(kFull, k_max, off));
-    for (int k = k_max - 1; k >= 0; --k) {
-      float gr[kGradCols];
-#pragma unroll
-      for (int c = 0; c < kGradCols; ++c) gr[c] = 0.0f;
-      int sid = -1;
-      if (k < n_exec) {
-        const float* sv = saved[k];
-        const int id = saved_id[k];
-        float row[kObjCols];
-        twin_row(obj, id, row);
-        const float x = row[0];
-        const float y = dcarr + sv[11];
-        float sa[kStepAccs];
-#pragma unroll
-        for (int s = 0; s < kStepAccs; ++s) sa[s] = y * (float)(1.0 + 1e-7 * s);
-#pragma unroll 1
-        for (int t = 0; t < T.n_step; ++t) {
-#pragma unroll
-          for (int s = 0; s < kStepAccs; ++s) {
-            float mid;
-            sa[s] = twin_iter(sa[s], x, s == 0 || s == 3, mid);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < 12; ++c) gr[c] = sa[c & 3] * sv[c];
-#pragma unroll
-        for (int c = 12; c < 15; ++c) gr[c] = sa[c & 3];
-        gr[15] = 1.0f;
-        dcarr = sa[0];
-        sid = id;
-      }
-      warp_scatter(wacc, sid, as_grad(gr));
-    }
-
-    // --- second half of the main chain ---
-    accs[0] = dcarr + a_mid;
-#pragma unroll
-    for (int i2 = 0; i2 < kTwinHalf; ++i2) {
-      const float x = xs[(kTwinHalf + i2) % kObjCols];
-      float mids[kTwinSlots];
-      if (i2 < T.n_second)
-        run_slots(accs, mids, x, T.divs[kTwinHalf + i2], T.slots[kTwinHalf + i2]);
-    }
-
-    // --- the primary site's scatter, the camera, the image ---
-    {
-      float gr[kGradCols];
-#pragma unroll
-      for (int c = 0; c < 15; ++c) gr[c] = accs[c % kTwinSlots];
-      gr[15] = 1.0f;
-      warp_scatter(wacc, id0, as_grad(gr));
-    }
-#pragma unroll
-    for (int c = 0; c < kCamCols; ++c) dcam[c] = dcam[c] + (accs[c % kTwinSlots] + a_mid);
-    float pacc = accs[0];
-    if constexpr (NPool > 0) {
-      TreeSum<NPool>::fold(pool);
-      pacc = pacc + pool[0];
-    }
-    const float pe = pacc * 1e-6f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) img_acc[c] = img_acc[c] + (accs[c] + pe);
-  }
-
-  if (in_img) {
-    const float fA = (float)A;
-    img[p * 3 + 0] = img_acc[0] / fA;
-    img[p * 3 + 1] = img_acc[1] / fA;
-    img[p * 3 + 2] = img_acc[2] / fA;
-  }
-
-  // --- camera columns: warp butterfly into the warp's 21 sums ---
-#pragma unroll
-  for (int i = 0; i < kCamCols; ++i) {
-    float s = dcam[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-    if (lane == 0) wacc[D.n_obj * kGradCols + i] = s;
-  }
-
-  // --- the block's partial row: its warps' accumulators added in order ---
-  __syncthreads();
-  float* out = partial + (size_t)blockIdx.x * acc_cols;
-  for (int i = threadIdx.x; i < acc_cols; i += blockDim.x) {
-    float s = acc[i];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += acc[w * acc_cols + i];
-    out[i] = s;
-  }
+// Instruments of the split only: K7's body with one piece of K2's
+// structure removed (Var) or with ptxas held to MinBlocks blocks an SM.
+template <int Var, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
+    bwd_twin_split_kernel(const float* __restrict__ table, const float* __restrict__ g_img,
+                          const int* __restrict__ pid, const float* __restrict__ lit_in,
+                          const int* __restrict__ bid, float* __restrict__ partial,
+                          float* __restrict__ img, TwinDims D, TwinSizing T) {
+  constexpr int NPool = kSplitPool;
+#include "twin_body.cuh"
 }
 
 using TwinFn = void (*)(const float*, const float*, const int*, const float*, const int*, float*,
                         float*, TwinDims, TwinSizing);
 
-TwinFn pick_twin(int n_pool) {
+// K7 of pool n_pool (split 0), or split instance 1 (no shuffles), 2 (no
+// chain), 3 (at least 4 blocks an SM) or 4 (5 blocks) of pool kSplitPool.
+TwinFn pick_twin(int n_pool, int split) {
+  if (split != 0) {
+    if (n_pool != kSplitPool) return nullptr;
+    switch (split) {
+      case 1: return bwd_twin_split_kernel<kTwinNoShfl, 1>;
+      case 2: return bwd_twin_split_kernel<kTwinNoChain, 1>;
+      case 3: return bwd_twin_split_kernel<kTwinAsK2, 4>;
+      case 4: return bwd_twin_split_kernel<kTwinAsK2, 5>;
+      default: return nullptr;
+    }
+  }
   switch (n_pool) {
     case 0: return bwd_twin_kernel<0>;
     case 32: return bwd_twin_kernel<32>;
@@ -362,18 +259,19 @@ TwinFn pick_twin(int n_pool) {
 
 }  // namespace
 
-// One launch of bwd_twin_kernel<n_pool> on `stream`. dims = {rows, width,
+// One launch of bwd_twin_kernel<n_pool> (split 0) or of split instance
+// `split` (pick_twin) on `stream`. dims = {rows, width,
 // aa, bounces, n_obj}; sizing = {n_half, n_second, n_step, slots[12],
 // divs[12]} (HOST arrays, laid out as TwinSizing). table [n_obj, 17];
 // g [rows, W, 3]; pid, lit [A, rows, W]; bid [bounces, A, rows, W] (may be
 // null when bounces == 0); partial [ceil(rows*W / 128), n_obj*16 + 21] and
 // img [rows, W, 3] are overwritten. Returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for a pool without an instance, a
+// launch, or cudaErrorInvalidValue for a pool or split without an instance, a
 // sizing past the caps, or more bounces than the chain storage holds.
-extern "C" int bwd_twin_launch(int n_pool, const float* table, const float* g, const int* pid,
-                               const float* lit, const int* bid, float* partial, float* img,
-                               const int* dims, const int* sizing, void* stream) {
-  const TwinFn fn = pick_twin(n_pool);
+extern "C" int bwd_twin_launch(int n_pool, int split, const float* table, const float* g,
+                               const int* pid, const float* lit, const int* bid, float* partial,
+                               float* img, const int* dims, const int* sizing, void* stream) {
+  const TwinFn fn = pick_twin(n_pool, split);
   TwinDims D;
   D.rows = dims[0];
   D.width = dims[1];

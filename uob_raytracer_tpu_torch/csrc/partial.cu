@@ -9,25 +9,44 @@
 // outside (ops/intersect.py: min t, lowest index on a tie, masked sum);
 // spheres are not sharded and are not scanned here.
 //
-// Design (simple first):
+// Design:
 // - One thread per ray. A batch is [N,3] starts and directions, contiguous
 //   float32, read as they are: no (8,128) ray tiles, no padding, no packed
 //   128-lane table rows, no "big" sentinel in the interface (a miss is
 //   t = inf, id -1).
 // - The block stages the shard's table through shared memory kThreads rows
-//   at a time (load_tile) and every thread tests its ray against the tile.
-//   Every ray of a batch runs exactly one scan, so the only block-uniform
-//   matter is the ragged last block, whose spare threads load and wait.
+//   at a time and every thread tests its ray against the tile. Every ray of
+//   a batch runs exactly one scan, so the only block-uniform matter is the
+//   ragged last block, whose spare threads load and wait.
 // - The per-row arithmetic is the forward render kernels' own
 //   (fwd_common.cuh): tri_test / nearest_finish, the general own-origin
 //   test of the bounce scan, with a strict < in row order, so a tie goes to
-//   the lowest row as argmin gives it to the plain version; occ_row behind
-//   casts_shadow on plain triangle rows, the division-free occlusion test.
-//   A shard that holds the whole scene therefore decides as the streamed
-//   forward kernel decides.
-// - The occlusion scan leaves a ray alone once it is occluded and ends when
-//   no ray of the block is still looking (__syncthreads_or).
+//   the lowest row as argmin gives it to the plain version; occ_row, the
+//   division-free occlusion test. A shard that holds the whole scene
+//   therefore decides as the streamed forward kernel decides.
 // - The winner id is an int32 output, not a float lane.
+// - The occlusion scan (K5) was redesigned after a split of its time on
+//   the dense_8192 frame (PERF.md, chip_timing.py --split): its row loop
+//   ran at 61% of FP32 issue where the nearest-hit scan's reaches 73%, a
+//   warp used 85% of its lane-rows (it runs as long as its slowest lane),
+//   and an occluded ray's first occluder sits at row ~3,070 of 8,192. A
+//   ray's bit is the OR of the same row tests in any order, so the kernel
+//   may test more rows, or test them otherwise, and give the same bits:
+//   * it tests kOccGroup rows a step as independent predicates and leaves
+//     after the step that found an occluder, so the rows of a step overlap;
+//   * a row is three float4 reads from the tile; a row that casts no
+//     shadow (glass) and the rows past the table's end are stored as zeros,
+//     which occ_row never counts, so there is no casts_shadow branch and no
+//     bound in the loop;
+//   * compacting the block's seeking rays into its low threads at tile
+//     boundaries (so that warps with no ray left skip the tests) measured
+//     the same time and was dropped (PERF.md);
+//   * the block leaves when no ray is seeking (__syncthreads_or).
+//   A cache of the rows that occluded a block's rays, tested first, was
+//   not built: the rays of a block test the rows in one order, so a row
+//   that occludes a neighbour lies at or after the ray's own first
+//   occluder whenever it occludes the ray, and the cache could only add
+//   tests (PERF.md).
 //
 // What bounds them on this card: the FP32 instruction rate (rays x rows x
 // about 70 operations for a nearest-hit test, 55 for an occlusion test);
@@ -82,34 +101,74 @@ __global__ void __launch_bounds__(kThreads)
   idx[r] = best.id;
 }
 
+// K5's tile of the shadow table in shared memory: 128 rows of v0 e1 e2 E
+// as three float4 each. A row that casts no shadow (material -1, glass)
+// and the rows past the table's end are stored as zeros, which occ_row
+// never counts (dA = 0 fails its triangle bound), so the row loop needs
+// neither casts_shadow nor a bound of its own.
+constexpr int kShdRow4 = 3;
+
+__device__ __forceinline__ void load_shd_tile(float4* tile, const float* __restrict__ g,
+                                              int n_rows, int row0) {
+  const int row = row0 + (int)threadIdx.x;
+  float R[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) R[c] = 0.0f;
+  if (row < n_rows) {
+    const float* src = g + (size_t)row * kShdCols;
+    if (src[12] != -1.0f) {
+#pragma unroll
+      for (int c = 0; c < 12; ++c) R[c] = src[c];
+    }
+  }
+  float4* dst = tile + threadIdx.x * kShdRow4;
+  dst[0] = make_float4(R[0], R[1], R[2], R[3]);
+  dst[1] = make_float4(R[4], R[5], R[6], R[7]);
+  dst[2] = make_float4(R[8], R[9], R[10], R[11]);
+}
+
+// occ_row (fwd_common.cuh) on row i of the tile, read as three float4.
+__device__ __forceinline__ bool occ_tile_row(const float4* tile, int i, V3 start, V3 dir,
+                                             float dds, float radius_sq) {
+  const float4 a = tile[i * kShdRow4], b = tile[i * kShdRow4 + 1], c = tile[i * kShdRow4 + 2];
+  const float R[12] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+  return occ_row(R, 9, false, start, dir, dds, radius_sq);
+}
+
+// Rows tested a step, as independent predicates, before one exit test.
+constexpr int kOccGroup = 4;
+
 __global__ void __launch_bounds__(kThreads)
     occluded_tris_kernel(const float* __restrict__ g_shd, const float* __restrict__ g_start,
                          const float* __restrict__ g_d, const float* __restrict__ g_r2,
                          uint8_t* __restrict__ out, int n_tri, int n_rays) {
-  __shared__ float tile[kThreads * kShdCols];
+  __shared__ float4 tile[kThreads * kShdRow4];
   const size_t r = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = r < (size_t)n_rays;
   const V3 start = in ? load3(g_start + r * 3) : make(0.0f, 0.0f, 0.0f);
   const V3 dir = in ? load3(g_d + r * 3) : make(0.0f, 0.0f, 0.0f);
   const float radius_sq = in ? g_r2[r] : 0.0f;
   const float dds = dot(dir, dir);
-  Params P = {};  // casts_shadow reads only cpu_ref: materials count
 
   // this ray still looks for its first occluder
   bool seeking = in;
   for (int base = 0; base < n_tri; base += kThreads) {
     if (!__syncthreads_or(seeking)) break;  // block-uniform, and the barrier
-    const int n = load_tile(tile, g_shd, kShdCols, n_tri, base);
+    load_shd_tile(tile, g_shd, n_tri, base);
     __syncthreads();
-    if (seeking)
-      for (int i = 0; i < n; ++i) {
-        const float* R = tile + i * kShdCols;
-        if (!casts_shadow(P, R, 12)) continue;
-        if (occ_row(R, 9, false, start, dir, dds, radius_sq)) {
+    if (seeking) {
+      const int n = min(kThreads, n_tri - base);
+      for (int i = 0; i < n; i += kOccGroup) {
+        bool hit = false;
+#pragma unroll
+        for (int k = 0; k < kOccGroup; ++k)
+          hit |= occ_tile_row(tile, i + k, start, dir, dds, radius_sq);
+        if (hit) {
           seeking = false;
           break;
         }
       }
+    }
   }
   if (in) out[r] = seeking ? 0 : 1;
 }

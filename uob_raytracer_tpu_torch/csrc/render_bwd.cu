@@ -1,4 +1,6 @@
-// Path-replay backward kernel for Hopper (sm_90a): one launch per gradient.
+// Path-replay backward kernels for Hopper (sm_90a): two launches per
+// gradient on frames of a million rays or more that bounce, in scenes of up
+// to 32 objects; one launch otherwise.
 //
 // Replaces the TPU kernel kernels/render_bwd.py:_bwd_kernel of the JAX
 // package (whole-table mode). From the packed scene tables, the image
@@ -19,19 +21,40 @@
 // wrapper pulls it back onto the vertices through pack_scene). Division
 // and sqrt are IEEE with their plain derivatives.
 //
-// Design (simple first):
+// Design:
 // - One thread per pixel, looping over its A rays as the forward kernel
 //   does. Per ray: a forward sweep over the bounce steps the ray really ran
 //   (the record's depth, not the budget) that keeps the 12 floats a step's
 //   adjoint needs (cur_d, cur_pos, cur_nrm, cur_mat, medium, weight) in
 //   per-thread storage, the shading adjoint, the reverse sweep, and the
-//   adjoint of the primary hit and the ray generation. The TPU kernel's
-//   VMEM chain scratch, sized from the config's bounces, becomes that
-//   per-thread array in the register instance (Deep = false), sized at
-//   compile time to kRegBounces steps; a deeper config launches the deep
-//   instance (Deep = true), whose chain lives in a device buffer the
-//   wrapper allocates (bwd_common.cuh: DeepSteps), so any bounce count
-//   runs and the default instance keeps its registers.
+//   adjoint of the primary hit and the ray generation (bwd_body.cuh).
+// - Split by the record. Only a ray whose primary object is specular has a
+//   bounce chain: 6.4% of the rays at full_1024. The chain's storage
+//   (float[16][12] a thread, indexed at run time) held every thread to 168
+//   registers, a 912 B stack and 3 blocks an SM. So a gradient is two
+//   launches when the wrapper's rule says so (render_bwd.py:splits). render_bwd_free_kernel runs every pixel none
+//   of whose rays has a chain: the body without chain storage, step code or
+//   reverse sweep, at 4 blocks an SM (128 registers). It also writes, in
+//   order, the pixels it leaves out (a pixel with any chain ray goes whole,
+//   so that its rays stay in one thread, in ray order): per block a list
+//   and a count, which the wrapper turns into offsets with one cumsum on
+//   the device (no wait for the host). A block with no pixel left stops
+//   before it stages the tables, a warp with none skips the body.
+//   render_bwd_kernel then runs the listed pixels, compacted, 128 to a
+//   block, each thread finding its pixel by a binary search over the
+//   offsets; the grid is the frame's block count, and the blocks past the
+//   list write zeros and stop. It is held to 3 blocks an SM (168
+//   registers; left free, ptxas took 197 and the launch ran slower). The
+//   register instance (Deep = false) keeps the chain in the per-thread
+//   array of kRegBounces steps; a deeper config launches the deep instance
+//   (Deep = true), whose chain lives in a device buffer the wrapper
+//   allocates (bwd_common.cuh: DeepSteps), so any bounce count runs.
+//   Otherwise render_bwd_kernel alone runs every pixel, as before the
+//   split: past 32 objects (the staged table and the accumulators grow to
+//   hundreds of KB a block, which a second launch would stage and zero
+//   again), without bounces, and below a million rays (where the chain
+//   launch's floor, a few waves of blocks each as slow as its deepest
+//   chain, costs more than the chain-free launch saves).
 // - The object rows (28 x 17 floats on the Cornell box) are staged into
 //   shared memory as one unified table, so a gather is one indexed read:
 //   the TPU kernel's presence-bit gather loop and its de Bruijn LUT are not
@@ -39,19 +62,31 @@
 // - The TPU kernel accumulates into tables that persist across its
 //   sequential grid. Blocks run concurrently here, so each block reduces
 //   its own rays' cotangents and writes one row of partial sums
-//   [n_obj*16 + 21]; the sum over blocks is a torch.sum in the wrapper.
-//   No float atomics anywhere: within a warp, the lanes that hit the same
-//   object at the same site are summed by a shuffle butterfly (the warp
-//   visits only the objects its rays hit, which is the presence word's
-//   second job), lane 0 adds the result to the warp's accumulator in
-//   shared memory, and the block adds its four warps in order. Two runs on
-//   the same inputs give bit-equal gradients.
+//   [n_obj*16 + 21]; the wrapper adds the rows of both launches with
+//   torch.sum, in a fixed order. No float atomics anywhere: within a warp,
+//   the lanes that hit the same object at the same site are summed by a
+//   shuffle butterfly (bwd_common.cuh; the warp visits only the objects its
+//   rays hit, which is the presence word's second job), lane 0 adds the
+//   result to the warp's accumulator in shared memory, and the block adds
+//   its four warps in order. In the chain-free launch a thread first
+//   carries its primary site's row across its AA rays while the object
+//   repeats (it almost always does), so the warp scatters when a lane's
+//   object changes and once at the pixel's end, not once a ray. Two runs
+//   on the same inputs give bit-equal gradients; the replayed image is the
+//   one-launch design's bit for bit (the per-ray arithmetic is unchanged;
+//   only the order of the sums over rays is).
 // - The reverse sweep runs to the deepest chain of the warp, with shallower
 //   lanes idle, so that all 32 lanes meet at every shuffle.
 //
-// What bounds it on this card: FP32 issue and the shuffle reductions; the
-// record it reads (4 + 4 + 4*bounces bytes per ray) and the partial sums it
-// writes are small beside that.
+// What bounds it on this card: FP32 issue and latency. The split that
+// decided the design (chip_timing.py --split: K7, the structure twin, with
+// the shuffles, the chain storage and the register cap changed one at a
+// time) found the shuffles and the chain's storage each worth 18% of the
+// twin's time, and a register cap a loss wherever it spilled. At
+// full_1024 the chain-free launch takes 0.22 ms for 93.5% of the pixels,
+// the chain launch 0.13 ms for the rest and their bounce steps; the record
+// (4 + 4 + 4*bounces bytes per ray) and the partial sums are small beside
+// that. PERF.md has the runs.
 //
 // The per-ray replay and its adjoint live in bwd_common.cuh and
 // bwd_body.cuh, shared with the streamed kernel (render_bwd_streamed.cu) for scenes whose accumulators do
@@ -83,105 +118,284 @@ __device__ __forceinline__ Row load_row(const float* obj, int n_tri, int id) {
   return r;
 }
 
-// The whole-table kernel's tables: rows from the staged unified table,
-// cotangents into the warp's accumulator in shared memory.
+// The chain-free launch's blocks an SM: ptxas holds it to 128 registers
+// (PERF.md: 4 blocks beat 3, 5 and 6).
+constexpr int kFreeBlocks = 4;
+// The chain launch's: 3, so ptxas keeps it at 168 registers (PERF.md: left
+// free it took 197, 2 blocks an SM, and ran 1-20% slower).
+constexpr int kChainBlocks = 3;
+
+// The whole-table kernels' tables: rows from the staged unified table,
+// cotangents into the warp's accumulator in shared memory. With Carry (the
+// chain-free launch; in the chain launch the carry's registers cost more
+// than it saves, PERF.md), a lane holds its primary site's row back while
+// its object repeats from ray to ray, and the warp scatters only when some
+// lane's object changes (flush: at the pixel's end).
+template <bool Carry>
 struct WholeTables {
   const float* obj;
   float* wacc;
   int n_tri;
+  RowGrad carry;
+  int carry_id;
   __device__ __forceinline__ Row load(int id) const { return load_row(obj, n_tri, id); }
-  __device__ __forceinline__ void scatter(int, int, int id, const RowGrad& g) {
-    warp_scatter(wacc, id, g);
+  __device__ __forceinline__ void scatter(int site, int, int id, const RowGrad& g) {
+    if (Carry && site == 0) {
+      const bool change = carry_id >= 0 && id >= 0 && id != carry_id;
+      if (__any_sync(kFull, change)) warp_scatter(wacc, change ? carry_id : -1, carry);
+      if (id >= 0) {
+        carry = id == carry_id ? add_grad(carry, g) : g;
+        carry_id = id;
+      }
+    } else {
+      warp_scatter(wacc, id, g);
+    }
+  }
+  __device__ __forceinline__ void flush() {
+    if (Carry) {
+      warp_scatter(wacc, carry_id, carry);
+      carry_id = -1;
+    }
   }
 };
 
+// Stages the unified object table and the camera row and zeroes the
+// warps' accumulators; declares n_obj, acc_cols, obj, cam, acc and this
+// warp's accumulator wacc.
+#define STAGE_TABLES()                                                                     \
+  extern __shared__ float smem[];                                                          \
+  const int n_obj = P.n_tri + P.n_sph;                                                     \
+  const int acc_cols = n_obj * kGradCols + kCamCols;                                       \
+  float* obj = smem;                                                                       \
+  float* cam = obj + n_obj * kObjCols;                                                     \
+  float* acc = cam + kCamCols; /* [kWarps][acc_cols] */                                    \
+  for (int i = threadIdx.x; i < n_obj * kObjCols; i += blockDim.x) {                       \
+    const int o = i / kObjCols, c = i - o * kObjCols;                                      \
+    float v;                                                                               \
+    if (o < P.n_tri) {                                                                     \
+      v = c < 16 ? g_tri[o * kTriCols + c] : 0.0f; /* v0 e1 e2 n rgb mat | r2 = 0 */       \
+    } else {                                                                               \
+      const float* S = g_sph + (o - P.n_tri) * kSphCols;                                   \
+      v = c < 3 ? S[c] : c < 12 ? 0.0f : c < 15 ? S[4 + (c - 12)] : c == 15 ? S[7] : S[3]; \
+    }                                                                                      \
+    obj[i] = v;                                                                            \
+  }                                                                                        \
+  for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) cam[i] = g_cam[i];              \
+  for (int i = threadIdx.x; i < kWarps * acc_cols; i += blockDim.x) acc[i] = 0.0f;         \
+  __syncthreads();                                                                         \
+  float* wacc = acc + (threadIdx.x >> 5) * acc_cols
+
+// The block's partial row: its warps' accumulators added in order.
+#define WRITE_PARTIAL_ROW()                                              \
+  __syncthreads();                                                       \
+  float* out = partial + (size_t)blockIdx.x * acc_cols;                  \
+  for (int i = threadIdx.x; i < acc_cols; i += blockDim.x) {             \
+    float s = acc[i];                                                    \
+    _Pragma("unroll") for (int w = 1; w < kWarps; ++w) s += acc[w * acc_cols + i]; \
+    out[i] = s;                                                          \
+  }
+
+// The block's partial row as zeros, for a block with no pixel to run.
+__device__ __forceinline__ void zero_partial_row(float* partial, const Params& P) {
+  const int cols = (P.n_tri + P.n_sph) * kGradCols + kCamCols;
+  for (int i = threadIdx.x; i < cols; i += blockDim.x) partial[(size_t)blockIdx.x * cols + i] = 0.0f;
+}
+
+// The pixels without a bounce chain. Each block also writes the pixels it
+// leaves out, in order, to list[blockIdx.x * 128 ...] and their number to
+// count[blockIdx.x]. A block with no pixel left writes zeros and stops
+// before it stages the tables; a warp with none skips the body.
+__global__ void __launch_bounds__(kThreads, kFreeBlocks)
+    render_bwd_free_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
+                           const float* __restrict__ g_cam, const float* __restrict__ g_img,
+                           const int* __restrict__ pid, const float* __restrict__ lit_in,
+                           float* __restrict__ partial, float* __restrict__ img,
+                           int* __restrict__ list, int* __restrict__ count, Params P) {
+  __shared__ int wcount[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t n_pix = (size_t)P.rows * P.width;
+  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // a ray has a chain when its primary object is specular (bwd_body.cuh:
+  // the forward sweep's first test); material codes from the tables
+  bool has_chain = false;
+  if (p < n_pix && P.bounces > 0) {
+    const int A = P.aa_x * P.aa_y;
+    for (int a = 0; a < A; ++a) {
+      const int id = pid[a * n_pix + p];
+      if (id >= 0) {
+        const float mat = id < P.n_tri ? g_tri[id * kTriCols + 15]
+                                       : g_sph[(id - P.n_tri) * kSphCols + 7];
+        has_chain = has_chain || mat <= 0.0f;
+      }
+    }
+  }
+  const unsigned bal = __ballot_sync(kFull, has_chain);
+  if (lane == 0) wcount[warp] = __popc(bal);
+  __syncthreads();
+  int rank = __popc(bal & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    rank += w < warp ? wcount[w] : 0;
+    total += wcount[w];
+  }
+  if (has_chain) list[(size_t)blockIdx.x * kThreads + rank] = (int)p;
+  if (threadIdx.x == 0) count[blockIdx.x] = total;
+  // a pixel left out carries no ray here, as a thread past the ragged edge
+  const bool in_img = p < n_pix && !has_chain;
+  if (!__syncthreads_or(in_img)) {
+    zero_partial_row(partial, P);
+    return;
+  }
+
+  STAGE_TABLES();
+  if (__any_sync(kFull, in_img)) {
+    constexpr bool Chain = false, Deep = false;
+    const size_t chain_stride = 0;
+    float* chain = nullptr;
+    const int* bid = nullptr;
+    WholeTables<true> tb;
+    tb.obj = obj;
+    tb.wacc = wacc;
+    tb.n_tri = P.n_tri;
+    tb.carry_id = -1;
+#define REPLAY_LOAD_ROW(id) tb.load(id)
+#define REPLAY_SCATTER(site, a, id, g) tb.scatter(site, a, id, g)
+#define REPLAY_FLUSH() tb.flush()
+#define REPLAY_WCAM (wacc + n_obj * kGradCols)
+#include "bwd_body.cuh"
+#undef REPLAY_LOAD_ROW
+#undef REPLAY_SCATTER
+#undef REPLAY_FLUSH
+#undef REPLAY_WCAM
+  }
+
+  WRITE_PARTIAL_ROW();
+}
+
+// The pixels with a bounce chain, 128 to a block. With a list (the free
+// kernel's, and off [blocks], the inclusive sums of its counts): block b
+// runs listed pixels b * 128 ..., each thread finding its pixel by a
+// binary search over off; the blocks past the list write zeros and stop.
+// Without (more than 32 objects): block b runs pixels b * 128 ...
 template <bool Deep>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kChainBlocks)
     render_bwd_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                       const float* __restrict__ g_cam, const float* __restrict__ g_img,
                       const int* __restrict__ pid, const float* __restrict__ lit_in,
                       const int* __restrict__ bid, float* __restrict__ partial,
-                      float* __restrict__ img, float* __restrict__ chain, Params P) {
-  extern __shared__ float smem[];
-  const int n_obj = P.n_tri + P.n_sph;
-  const int acc_cols = n_obj * kGradCols + kCamCols;
-  float* obj = smem;
-  float* cam = obj + n_obj * kObjCols;
-  float* acc = cam + kCamCols;  // [kWarps][acc_cols]
-
-  // --- stage the unified object table and zero the accumulators ---
-  for (int i = threadIdx.x; i < n_obj * kObjCols; i += blockDim.x) {
-    const int o = i / kObjCols, c = i - o * kObjCols;
-    float v;
-    if (o < P.n_tri) {
-      v = c < 16 ? g_tri[o * kTriCols + c] : 0.0f;  // v0 e1 e2 n rgb mat | r2 = 0
-    } else {
-      const float* S = g_sph + (o - P.n_tri) * kSphCols;
-      v = c < 3 ? S[c] : c < 12 ? 0.0f : c < 15 ? S[4 + (c - 12)] : c == 15 ? S[7] : S[3];
-    }
-    obj[i] = v;
+                      float* __restrict__ img, float* __restrict__ chain,
+                      const int* __restrict__ list, const int* __restrict__ off, Params P) {
+  const size_t n_pix = (size_t)P.rows * P.width;
+  const int n_src = (int)((n_pix + kThreads - 1) / kThreads);
+  const size_t n_work = list != nullptr ? (size_t)off[n_src - 1] : n_pix;
+  if ((size_t)blockIdx.x * kThreads >= n_work) {
+    zero_partial_row(partial, P);
+    return;
   }
-  for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) cam[i] = g_cam[i];
-  for (int i = threadIdx.x; i < kWarps * acc_cols; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-
-  float* wacc = acc + (threadIdx.x >> 5) * acc_cols;
-  WholeTables tb;
+  STAGE_TABLES();
+  const size_t chain_stride = (size_t)n_src * kThreads;
+  const size_t j = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  // threads past the last pixel stay: they carry no ray but take part in
+  // the warp's shuffles
+  const bool in_img = j < n_work;
+  size_t p = j;
+  if (list != nullptr && in_img) {
+    int lo = 0, hi = n_src - 1;  // the first source block past j
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((size_t)off[mid] > j)
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+    p = (size_t)list[(size_t)lo * kThreads + (j - (lo ? (size_t)off[lo - 1] : 0))];
+  }
+  constexpr bool Chain = true;
+  WholeTables<false> tb;
   tb.obj = obj;
   tb.wacc = wacc;
   tb.n_tri = P.n_tri;
 #define REPLAY_LOAD_ROW(id) tb.load(id)
 #define REPLAY_SCATTER(site, a, id, g) tb.scatter(site, a, id, g)
+#define REPLAY_FLUSH() tb.flush()
 #define REPLAY_WCAM (wacc + n_obj * kGradCols)
 #include "bwd_body.cuh"
 #undef REPLAY_LOAD_ROW
 #undef REPLAY_SCATTER
+#undef REPLAY_FLUSH
 #undef REPLAY_WCAM
 
-  // --- the block's partial row: its warps' accumulators added in order ---
-  __syncthreads();
-  float* out = partial + (size_t)blockIdx.x * acc_cols;
-  for (int i = threadIdx.x; i < acc_cols; i += blockDim.x) {
-    float s = acc[i];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += acc[w * acc_cols + i];
-    out[i] = s;
-  }
+  WRITE_PARTIAL_ROW();
+}
+
+#undef STAGE_TABLES
+#undef WRITE_PARTIAL_ROW
+
+size_t whole_smem(const Params& P) {
+  const size_t n_obj = (size_t)P.n_tri + P.n_sph;
+  return sizeof(float) * (n_obj * kObjCols + kCamCols + kWarps * (n_obj * kGradCols + kCamCols));
+}
+
+template <class F>
+cudaError_t allow_smem(F kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
-// Launches one backward pass on `stream`. ip and fp are HOST arrays (their
-// fields are listed at make_params in bwd_common.cuh).
-// g [rows, W, 3]; pid, lit [A, rows, W]; bid [bounces, A, rows, W] (may be
-// null when bounces == 0); partial [ceil(rows*W / 128), (n_tri+n_sph)*16 + 21]
-// is overwritten; img [rows, W, 3] receives the replayed radiance when
-// want_img is set (else it may be null). Up to kRegBounces bounces the
-// register instance runs and chain may be null; a deeper config runs the
+// Both launchers: ip and fp are HOST arrays (their fields are listed at
+// make_params in bwd_common.cuh). g [rows, W, 3]; pid, lit [A, rows, W];
+// bid [bounces, A, rows, W] (may be null when bounces == 0).
+// img [rows, W, 3] receives the replayed radiance when want_img is set
+// (else it may be null). Up to kRegBounces bounces the register instance
+// of the chain launch runs and chain may be null; a deeper config runs the
 // deep instance, which needs chain: kChainFloats * bounces * 128 *
 // ceil(rows*W / 128) floats of scratch (contents on entry do not matter).
-// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue when a
-// deep config comes without its chain.
+
+// The chain-free launch (up to 32 objects): partial [ceil(rows*W / 128),
+// (n_tri+n_sph)*16 + 21] is overwritten, list [ceil(rows*W / 128) * 128]
+// and count [ceil(rows*W / 128)] receive the pixels left for the chain
+// launch. Returns cudaGetLastError() of the launch.
+extern "C" int render_bwd_free_launch(const float* tri, const float* sph, const float* cam,
+                                      const float* g, const int* pid, const float* lit,
+                                      float* partial, float* img, int* list, int* count,
+                                      const int* ip, const float* fp, void* stream) {
+  const Params P = make_params(ip, fp);
+  const long long n_pix = (long long)P.rows * P.width;
+  if (n_pix == 0) return 0;
+  const auto fn = render_bwd_free_kernel;
+  const size_t smem = whole_smem(P);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
+  fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, partial, img,
+                                                      list, count, P);
+  return (int)cudaGetLastError();
+}
+
+// The chain launch: with list and off (the free launch's list and the
+// inclusive sums of its counts, on the device) over the listed pixels;
+// without (list null) over every pixel. partial [ceil(rows*W / 128),
+// (n_tri+n_sph)*16 + 21] is overwritten. Returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue when a deep config comes without its
+// chain.
 extern "C" int render_bwd_launch(const float* tri, const float* sph, const float* cam,
                                  const float* g, const int* pid, const float* lit,
                                  const int* bid, float* partial, float* img, float* chain,
-                                 const int* ip, const float* fp, void* stream) {
+                                 const int* list, const int* off, const int* ip, const float* fp,
+                                 void* stream) {
   const Params P = make_params(ip, fp);
   const bool deep = P.bounces > kRegBounces;
   if (deep && chain == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
-  const size_t n_obj = (size_t)P.n_tri + P.n_sph;
-  const size_t smem =
-      sizeof(float) * (n_obj * kObjCols + kCamCols + kWarps * (n_obj * kGradCols + kCamCols));
-  const auto kernel = deep ? render_bwd_kernel<true> : render_bwd_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const auto fn = deep ? render_bwd_kernel<true> : render_bwd_kernel<false>;
+  const size_t smem = whole_smem(P);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid,
-                                                          partial, img, chain, P);
+  fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid, partial,
+                                                      img, chain, list, off, P);
   return (int)cudaGetLastError();
 }

@@ -119,12 +119,21 @@ __global__ void __launch_bounds__(kThreads)
   tb.dlane = dlane + ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * kGradCols;
   tb.n_tri = P.n_tri;
   tb.A = P.aa_x * P.aa_y;
+  constexpr bool Chain = true;
+  const size_t n_pix = tb.n_pix;
+  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // threads past the ragged edge stay: they carry no ray but take part in
+  // the warp's shuffles
+  const bool in_img = p < n_pix;
+  const size_t chain_stride = (size_t)gridDim.x * blockDim.x;
 #define REPLAY_LOAD_ROW(id) tb.load(id)
 #define REPLAY_SCATTER(site, a, id, g) tb.scatter(site, a, id, g)
+#define REPLAY_FLUSH()
 #define REPLAY_WCAM (wacc + P.n_sph * kGradCols)
 #include "bwd_body.cuh"
 #undef REPLAY_LOAD_ROW
 #undef REPLAY_SCATTER
+#undef REPLAY_FLUSH
 #undef REPLAY_WCAM
 
   // --- the block's partial row: its warps' accumulators added in order ---

@@ -16,7 +16,11 @@ Two kinds of count live here, and they are not interchangeable:
   +-30%), scaled by what a run's decision record says ran. ``bound`` turns
   them into the least time the card could take: the larger of bytes over
   ``PEAK_BYTES`` and operations over ``PEAK_FP32`` (the data sheet's), or
-  over a measured rate.
+  over a measured rate. ``chain_share``, ``scatter_work``,
+  ``first_occluder`` and ``occluded_lanes`` count, from a record or a ray
+  batch, what sets K2's and K5's gaps (chain rays, warp shuffles, the rows
+  a ray tests before its first occluder, the lane-rows a warp issues);
+  they stay out of ``bound``.
 
 The instruments, the counterparts of the JAX package's roofline machinery:
 
@@ -186,7 +190,8 @@ def fwd_work(cfg, scene, quads, res: Residuals, record: bool):
     return nbytes, ops
 
 
-def bwd_work(cfg, scene, res: Residuals, streamed: bool = False):
+def bwd_work(cfg, scene, res: Residuals, streamed: bool = False,
+             pixels=None):
     """(bytes, operations) of one backward pass: the primary id, the lit
     count and the cotangent read once, the per-block partial sums written
     once (the whole-table kernel's hold every object, the streamed kernel's
@@ -195,13 +200,21 @@ def bwd_work(cfg, scene, res: Residuals, streamed: bool = False):
     entry that ends it; the streamed kernel also reads a 76 B row and
     writes a 64 B cotangent row per site that hit a triangle; per ray the
     primary hit's replay and adjoint and the shading adjoint, per executed
-    bounce step its replay, the step's adjoint and the hit's."""
+    bounce step its replay, the step's adjoint and the hit's. ``pixels``
+    (bool [rows * W]): the rays, steps and pixels of those pixels only (the
+    partial rows stay the whole grid's), as one launch of K2's split runs
+    them."""
     n_tri = scene.num_triangles
     n_sph = 0 if cfg.cpu_ref else scene.num_spheres
+    if pixels is not None:
+        keep = pixels.reshape(-1).to(res.prim_id.device)
+        res = Residuals(*(t.reshape(*t.shape[:-2], -1)[..., keep]
+                          if t.numel() else t for t in res))
     rays = res.prim_id.numel()
     steps = int((res.bounce_id >= 0).sum())
     chains = int((res.bounce_id[0] >= 0).sum()) if cfg.bounces else 0
-    pix = cfg.width * cfg.height
+    pix = (cfg.width * cfg.height if pixels is None
+           else int(pixels.reshape(-1).sum()))
     blocks = -(-pix // render_bwd.THREADS)
     nbytes = rays * 8 + 4 * (steps + chains) + 12 * pix
     if streamed:
@@ -244,6 +257,182 @@ def bound(nbytes, ops, peak_fp32: float = PEAK_FP32) -> tuple[float, str]:
     67 TFLOP/s unless a measured rate is given)."""
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak_fp32 * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# ---------------------------------------------------------------------------
+# What sets K2's and K5's gaps to their bounds: the records' own counts,
+# printed beside the bounds and kept out of them (so that the shares stay
+# comparable from PR to PR)
+# ---------------------------------------------------------------------------
+
+WARP = 32
+
+
+def chain_rays(scene, cfg: RenderConfig, res: Residuals) -> torch.Tensor:
+    """[A, rows, W] bool: the rays with a bounce chain, those whose primary
+    object is valid and specular (material code <= 0) when the config
+    bounces at all; every other ray runs only the primary replay, the
+    shading adjoint and the primary hit's adjoint."""
+    if not cfg.bounces:
+        return torch.zeros_like(res.prim_id, dtype=torch.bool)
+    mats = [scene.tri_mat] + ([] if cfg.cpu_ref else [scene.sph_mat])
+    mat = torch.cat(mats).detach().to(res.prim_id.device)
+    pid = res.prim_id
+    return (pid >= 0) & (mat[pid.clamp(min=0).long()] <= 0.0)
+
+
+def chain_share(scene, cfg: RenderConfig, res: Residuals) -> dict:
+    """The share of rays with a bounce chain, of pixels with at least one
+    (those K2's chain launch takes whole), and of warps of 32 consecutive
+    pixels with at least one; and the chain steps per ray."""
+    ray = chain_rays(scene, cfg, res)
+    pix = ray.reshape(ray.shape[0], -1).any(dim=0)
+    n = pix.numel()
+    pad = -n % WARP
+    warps = torch.cat([pix, pix.new_zeros(pad)]).reshape(-1, WARP).any(dim=1)
+    return {"rays": ray.float().mean().item(),
+            "pixels": pix.float().mean().item(),
+            "warps": warps.float().mean().item(),
+            "steps_per_ray": chain_steps(scene, cfg, res) / ray.numel()}
+
+
+def _distinct_valid(ids: np.ndarray) -> np.ndarray:
+    """Per row of ids [..., 32]: how many distinct ids >= 0 it holds."""
+    s = np.sort(ids, axis=-1)
+    new = np.concatenate([np.ones_like(s[..., :1], dtype=bool),
+                          s[..., 1:] != s[..., :-1]], axis=-1)
+    return ((s >= 0) & new).sum(axis=-1)
+
+
+def _warps_of(x: np.ndarray, fill) -> np.ndarray:
+    """[..., n] -> [..., ceil(n / 32), 32], the last warp padded."""
+    pad = -x.shape[-1] % WARP
+    if pad:
+        x = np.concatenate([x, np.full(x.shape[:-1] + (pad,), fill, x.dtype)],
+                           axis=-1)
+    return x.reshape(x.shape[:-1] + (-1, WARP))
+
+
+# SHFL instructions a call makes: per distinct id at a site, the id's
+# broadcast and a 5-level butterfly for each of the 16 columns; per warp a
+# 5-level butterfly for each of the 21 camera columns
+# (bwd_common.cuh:warp_scatter, warp_camera).
+SCATTER_SHFL = 1 + 16 * 5
+CAMERA_SHFL = 21 * 5
+
+
+def scatter_work(scene, cfg: RenderConfig, res: Residuals,
+                 scheme: str = "pr7") -> dict:
+    """SHFL instructions that K2's warp scatter and camera sums issue on
+    this record, counting each warp's distinct object ids per site.
+
+    "pr6": one launch; warps of 32 consecutive pixels; every AA ray's
+    primary site and every bounce site scattered at once. "pr7": the
+    chain-free launch over every pixel (a pixel with a chain ray carries
+    nothing there) and the chain launch over those pixels, compacted in
+    order into warps of their own; in the chain-free launch a lane carries
+    its primary site's row across its AA rays while the object repeats, so
+    the warp scatters only when a lane's object changes and once at the
+    pixel's end.
+
+    Returns {"scatter", "camera", "total", "per_ray", "sites", "distinct"}:
+    the shuffles, the warp-sites that scattered, and their distinct ids."""
+    if scheme not in ("pr6", "pr7"):
+        raise ValueError(f"scheme {scheme!r}: 'pr6' or 'pr7'")
+    A = res.prim_id.shape[0]
+    pid = res.prim_id.reshape(A, -1).cpu().numpy()
+    n_pix = pid.shape[1]
+    bid = (res.bounce_id.reshape(res.bounce_id.shape[0], A, -1).cpu().numpy()
+           if cfg.bounces else np.zeros((0, A, n_pix), np.int32))
+    chain = chain_rays(scene, cfg, res).reshape(A, -1).any(dim=0).cpu().numpy()
+    counts = []                       # distinct ids per warp-site
+
+    def sites(ids):                   # ids [..., warps, 32]
+        d = _distinct_valid(ids).reshape(-1)
+        counts.append(d[d > 0])
+
+    if scheme == "pr6":
+        sites(_warps_of(pid, -1))
+        sites(_warps_of(bid, -1))
+        warps = -(-n_pix // WARP)
+    else:
+        # the chain-free launch: deferred pixels carry nothing
+        free = _warps_of(np.where(chain[None], -1, pid), -1)
+        carry = np.full(free.shape[1:], -1, np.int32)
+        for a in range(A):
+            new = free[a]
+            change = (carry >= 0) & (new >= 0) & (new != carry)
+            sites(np.where(change, carry, -1))
+            carry = np.where(new >= 0, new, carry)
+        sites(carry)
+        # the chain launch over the chain pixels, compacted in order; each
+        # ray's sites scattered as it runs them
+        sites(_warps_of(pid[:, chain], -1))
+        sites(_warps_of(bid[:, :, chain], -1))
+        warps = free.shape[1] + -(-int(chain.sum()) // WARP)
+    d = np.concatenate(counts) if counts else np.zeros(0, np.int64)
+    scatter = int(d.sum()) * SCATTER_SHFL
+    camera = warps * CAMERA_SHFL
+    return {"scatter": scatter, "camera": camera, "total": scatter + camera,
+            "per_ray": (scatter + camera) / (A * n_pix),
+            "sites": int(d.size), "distinct": int(d.sum())}
+
+
+def first_occluder(v0, e1, e2, mat, start, d, radius_sq) -> torch.Tensor:
+    """int64 [N]: each ray's first occluding row of the shard (the plain
+    test of ``ops/intersect.py:tris_occlude``, a chunk of rays at a time),
+    n_tri where the ray is lit."""
+    from .kernels.partial import _ray_chunks, _shard
+    from .ops.intersect import tris_occlude_rows
+    n_tri = v0.shape[0]
+    ds = _shard(v0, e1, e2, v0, v0, mat)
+    out = []
+    with torch.no_grad():
+        for c in _ray_chunks(start.shape[0], n_tri):
+            occ = tris_occlude_rows(ds, start[c], d[c], radius_sq[c])
+            first = torch.argmax(occ.to(torch.uint8), dim=1)
+            out.append(torch.where(occ.any(dim=1), first, n_tri))
+    if not out:
+        return torch.zeros((0,), dtype=torch.int64, device=start.device)
+    return torch.cat(out)
+
+
+def occluded_lanes(first_row, n_tri: int, scheme: str = "pr6",
+                   tile: int = 128, group: int = 4) -> dict:
+    """How K5's threads spend their lane-rows on rays whose first occluding
+    rows are ``first_row`` (``first_occluder``; n_tri: lit), one thread
+    per ray in warps of 32 consecutive rays. A ray needs first_row + 1
+    rows (n_tri when lit); a warp issues 32 lanes for as long as its
+    slowest lane.
+
+    "pr6": each lane stops at its occluder. "pr7": tiles of ``tile`` rows,
+    ``group`` rows tested a step, a lane stopping at the end of the step
+    that holds its occluder; a warp whose lanes have all stopped tests
+    nothing more.
+
+    Returns {"used": rows needed / lane-rows issued, "row_order": rows
+    needed / the rows ``occluded_work`` counts (n_tri for a lit ray, 1 for
+    an occluded one), "rows": rows needed, "issued": lane-rows issued}."""
+    f = np.asarray(torch.as_tensor(first_row).cpu(), dtype=np.int64)
+    lit = f >= n_tri
+    need = np.where(lit, n_tri, f + 1)
+    counted = int(lit.sum()) * n_tri + int((~lit).sum())
+    if scheme == "pr6":
+        issued = int(_warps_of(need, 0).max(axis=-1).sum()) * WARP
+    elif scheme == "pr7":
+        warps = _warps_of(f, -1)          # a padded lane carries no ray
+        issued = 0
+        for base in range(0, n_tri, tile):
+            n_rows = min(tile, n_tri - base)
+            # rows each lane still seeking tests in this tile, in whole steps
+            rows = np.minimum(warps - base + 1, n_rows)
+            rows = np.where(warps >= base, -(-rows // group) * group, 0)
+            issued += int(rows.max(axis=-1).sum()) * WARP
+    else:
+        raise ValueError(f"scheme {scheme!r}: 'pr6' or 'pr7'")
+    rows = int(need.sum())
+    return {"used": rows / max(issued, 1), "row_order": rows / max(counted, 1),
+            "rows": rows, "issued": issued}
 
 
 # ---------------------------------------------------------------------------

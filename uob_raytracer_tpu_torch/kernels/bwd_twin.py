@@ -42,6 +42,16 @@ MAX_SLOTS = 12    # accumulators of one main-chain iteration, at most
 STEP_ACCS = 4     # the step chain's accumulators
 STEP_DIV_SLOTS = (0, 3)   # those that divide (bwdmix at K = 4)
 POOLS = (0, 32, 64, 96, 128)   # the pool sizes with a kernel instance
+# The split instances (``bwd_twin_split_kernel<Var, MinBlocks>``, pool
+# SPLIT_POOL only): K7 with one piece of K2's structure changed, timed
+# beside K7 by ``chip_timing.py --split``; name: (launcher index, symbol).
+SPLIT_POOL = 64
+SPLITS = {
+    "no_shuffles": (1, "bwd_twin_split_kernel<1, 1>"),
+    "no_chain": (2, "bwd_twin_split_kernel<2, 1>"),
+    "min_blocks_4": (3, "bwd_twin_split_kernel<0, 4>"),
+    "min_blocks_5": (4, "bwd_twin_split_kernel<0, 5>"),
+}
 
 # Kernel launches since import.
 LAUNCHES = 0
@@ -266,14 +276,24 @@ def _sizing_ints(sizing: dict):
     return (ctypes.c_int * len(ints))(*ints)
 
 
-def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict):
+def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict,
+             _split: str | None = None):
     """One run of the twin on a whole frame's record: returns (sums
     [n_obj*16 + 21] float32, img [H, W, 3]). ``table`` is ``twin_table``'s,
     ``g`` an image cotangent [H, W, 3], ``res`` the record of
     ``render_fused_res``. A CUDA tensor launches ``bwd_twin_kernel``; a CPU
-    tensor runs ``bwd_twin_plain``."""
+    tensor runs ``bwd_twin_plain``. ``_split`` (a key of ``SPLITS``, pool
+    SPLIT_POOL, CUDA only) launches that split instance instead: an
+    instrument whose sums are not the plain version's, and no launch of
+    K7 (``LAUNCHES`` does not move)."""
     global LAUNCHES
     check_sizing(sizing)
+    split = 0
+    if _split is not None:
+        if g.device.type != "cuda" or sizing["n_pool"] != SPLIT_POOL:
+            raise ValueError(f"bwd_twin: split {_split!r} runs on a CUDA "
+                             f"tensor with pool {SPLIT_POOL}")
+        split = SPLITS[_split][0]
     if g.device.type == "cpu":
         out = bwd_twin_plain(table, g, res, cfg, sizing)
         return out["sums"].float(), out["img"]
@@ -300,16 +320,16 @@ def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict):
     img = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
     dims = (ctypes.c_int * 5)(H, W, A, B, n_obj)
     fn = _build.load().bwd_twin_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                    + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
-        err = fn(sizing["n_pool"], table.data_ptr(), g.data_ptr(),
+        err = fn(sizing["n_pool"], split, table.data_ptr(), g.data_ptr(),
                  res.prim_id.data_ptr(), res.lit_cnt.data_ptr(),
                  res.bounce_id.data_ptr() if B else 0, partial.data_ptr(),
                  img.data_ptr(), dims, _sizing_ints(sizing),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bwd_twin kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    LAUNCHES += split == 0
     return partial.sum(dim=0), img

@@ -1,7 +1,7 @@
 """The path-replay backward kernels: the launch wrapper and plain version.
 
-``render_replay_bwd`` turns an image cotangent into a Scene gradient in ONE
-launch of a CUDA kernel, the Hopper counterpart of the TPU kernel
+``render_replay_bwd`` turns an image cotangent into a Scene gradient by
+CUDA kernels, the Hopper counterparts of the TPU kernel
 ``uob_raytracer_tpu/kernels/render_bwd.py:_bwd_kernel``: every ray
 re-gathers the objects it hit (the decision record of
 ``render_fused_res``), replays the lean reconstruction of its radiance
@@ -11,11 +11,19 @@ tables (``pack_scene``'s tri, sph and cam) and pulls them back onto the 15
 Scene leaves through torch autograd of ``pack_scene``, so vertex gradients
 include the path through the recomputed normals.
 
-There are two kernels, chosen by ``render_fwd.use_streamed`` as the forward
-kernels are. The whole-table kernel (``csrc/render_bwd.cu``) keeps one
-accumulator row per object and warp in shared memory and hands back
-per-block partial sums of all cotangents, summed here over blocks. The
-streamed kernel (``csrc/render_bwd_streamed.cu``, the counterpart of
+There are two designs, chosen by ``render_fwd.use_streamed`` as the forward
+kernels are. The whole-table kernels (``csrc/render_bwd.cu``) keep one
+accumulator row per object and warp in shared memory and hand back
+per-block partial sums of all cotangents, summed here over blocks. Up to
+``SPLIT_OBJECTS`` objects, on a frame that bounces and holds at least
+``SPLIT_RAYS`` rays (``splits``), a gradient is two launches split by the
+record:
+the chain-free kernel runs every pixel none of whose rays bounces (no chain
+storage, so more blocks an SM) and lists the others, and the chain kernel
+runs the listed pixels, compacted, 128 to a block (``torch.cumsum`` of
+the per-block counts on the device turns the lists into offsets; nothing
+waits for the host). Past that one launch of the chain kernel runs every
+pixel. The streamed kernel (``csrc/render_bwd_streamed.cu``, the counterpart of
 ``_bwd_kernel``'s ``streamed=True`` mode) takes any triangle count: it
 reads rows straight from device memory and writes each triangle's cotangent
 per ray and site (``dlane``); ``segment_sum`` then adds the sites of each
@@ -36,7 +44,8 @@ The kernel's plain torch version, ``render_replay_bwd_plain`` (torch
 autograd through ``ops.replay.replay_forward``), lives here beside it. For
 a scene on the CPU the wrapper runs that plain version; for a CUDA scene it
 launches the kernel or raises, and never falls back. ``LAUNCHES`` counts
-the whole-table kernel's launches, ``STREAMED_LAUNCHES`` the streamed
+the whole-table chain kernel's launches (one per row band),
+``FREE_LAUNCHES`` the chain-free kernel's, ``STREAMED_LAUNCHES`` the streamed
 kernel's (one per row band), ``SEGMENT_SUM_LAUNCHES`` the segmented sum's
 calls (each launches its two passes).
 """
@@ -60,8 +69,33 @@ from .render_fwd import bwd_shared_bytes as shared_bytes
 # Kernel launches since import: the whole-table kernel, the streamed kernel,
 # and the segmented sum that follows the streamed kernel.
 LAUNCHES = 0
+FREE_LAUNCHES = 0
 STREAMED_LAUNCHES = 0
 SEGMENT_SUM_LAUNCHES = 0
+
+# The whole-table gradient is split by the record into the chain-free
+# launch and the chain launch up to SPLIT_OBJECTS objects, when the config
+# bounces, and from SPLIT_RAYS AA rays a frame; otherwise the chain kernel
+# alone runs every pixel. Past 32 objects the staged table and the
+# accumulators (hundreds of KB a block) would be staged, zeroed and written
+# out twice. Below a million rays the chain launch's floor (a few waves of
+# blocks, each as slow as its deepest chain) costs more than the chain-free
+# launch saves: on the H100, 512x512 with one ray a pixel and 2-4 bounces
+# took 0.050 ms split against 0.042-0.044 in one launch, full_1024 (4.2 M
+# rays) 0.35 against 0.41 (PERF.md, PR 7).
+SPLIT_OBJECTS = 32
+SPLIT_RAYS = 1 << 20
+
+
+def splits(cfg: RenderConfig, rows: int, n_obj: int) -> bool:
+    """Whether the whole-table gradient of a frame of ``rows`` rows is
+    split into the chain-free and the chain launch (see SPLIT_RAYS)."""
+    return (n_obj <= SPLIT_OBJECTS and cfg.bounces > 0
+            and rows * cfg.width * cfg.aa_rays >= SPLIT_RAYS)
+# The chain-free kernel as ``flops.kernel_resources`` and
+# ``flops.sass_census`` take it (the chain kernel's register instance is
+# "render_bwd_kernel<false>").
+FREE_SYMBOL = "render_bwd_free_kernel"
 
 # The register instance keeps a ray's bounce chain in a per-thread array of
 # this many steps (kRegBounces in csrc/bwd_common.cuh); deeper configs
@@ -141,23 +175,34 @@ def launch_params(cfg: RenderConfig, row0: int, rows: int, n_tri: int,
             (ctypes.c_float * len(floats))(*[float(f) for f in floats]))
 
 
+_INTS, _FLOATS = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+
+
 def _declare(lib: ctypes.CDLL, streamed: bool):
-    """The launcher of the whole-table kernel (one output buffer: the
-    partials) or of the streamed kernel (two: dlane and the partials); both
-    then take the image and the deep chain."""
-    fn = lib.render_bwd_streamed_launch if streamed else lib.render_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * (11 if streamed else 10)
-                   + [ctypes.POINTER(ctypes.c_int),
-                      ctypes.POINTER(ctypes.c_float), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The launchers: the streamed kernel's (tables, g, record, dlane, the
+    partials, the image, the deep chain, params); or the whole-table
+    kernels' as a dict: "chain" (tables, g, record, the partials, the
+    image, the deep chain, list, offsets, params) and "free" (tables, g,
+    pid, lit, the partials, the image, list, counts, params)."""
+    if streamed:
+        fn = lib.render_bwd_streamed_launch
+        fn.argtypes = [ctypes.c_void_p] * 11 + [_INTS, _FLOATS, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+    chain, free = lib.render_bwd_launch, lib.render_bwd_free_launch
+    chain.argtypes = [ctypes.c_void_p] * 12 + [_INTS, _FLOATS, ctypes.c_void_p]
+    free.argtypes = [ctypes.c_void_p] * 10 + [_INTS, _FLOATS, ctypes.c_void_p]
+    for fn in (chain, free):
+        fn.restype = ctypes.c_int
+    return {"chain": chain, "free": free}
 
 
 def band_bytes(n: int, W: int, A: int, B: int, cols: int,
                streamed: bool) -> dict:
     """{name: (bytes, limit)} of the buffers one launch over a band of n
-    rows needs: the per-block partials (whole-table) or the per-site rows
-    (streamed), and the deep chain when B > REG_BOUNCES."""
+    rows needs: the per-block partials (whole-table; each of the split's
+    two launches has a buffer of its own) or the per-site rows (streamed),
+    and the deep chain when B > REG_BOUNCES."""
     threads = -(-n * W // THREADS) * THREADS
     out = ({"dlane": (4 * GRAD_COLS * (1 + B) * A * n * W, MAX_DLANE_BYTES)}
            if streamed else
@@ -214,7 +259,11 @@ def _spread(obj_tri, obj_sph, dcam, sph_rows: int):
 def table_cotangents(partial, n_tri: int, n_sph: int, sph_rows: int):
     """The whole-table kernel's result as table cotangents: sum its
     per-block partials [blocks, n_obj*16 + 21] and spread them (``_spread``)."""
-    sums = partial.sum(dim=0)
+    return _sums_cotangents(partial.sum(dim=0), n_tri, n_sph, sph_rows)
+
+
+def _sums_cotangents(sums, n_tri: int, n_sph: int, sph_rows: int):
+    """``table_cotangents`` of the partials' sums [n_obj*16 + 21]."""
     n_obj = n_tri + n_sph
     obj = sums[:n_obj * GRAD_COLS].reshape(n_obj, GRAD_COLS)
     return _spread(obj[:n_tri], obj[n_tri:], sums[n_obj * GRAD_COLS:],
@@ -312,7 +361,7 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     give the same bits). A CPU scene runs ``render_replay_bwd_plain``.
     ``_kernel`` pins the whole-table or the streamed kernel
     (``render_fwd.pick_kernel``)."""
-    global LAUNCHES, STREAMED_LAUNCHES
+    global LAUNCHES, FREE_LAUNCHES, STREAMED_LAUNCHES
     row0, rows = _band(cfg, row0, rows)
     dev = scene.device
     if dev.type == "cpu":
@@ -366,6 +415,14 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     img = (torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
            if return_primal else None)
     launch = _declare(_build.load(), streamed)
+    split = not streamed and splits(cfg, rows, n_obj)
+    if split:
+        # the chain-free launch's lists of the pixels it leaves out, and the
+        # chain launch's partial rows
+        lists = torch.empty((threads,), dtype=torch.int32, device=dev)
+        counts = torch.empty((threads // THREADS,), dtype=torch.int32,
+                             device=dev)
+        partial_chain = torch.empty_like(partial)
     totals = None
     for o, n in bands:
         if (o, n) == (0, rows):
@@ -381,16 +438,34 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
             outs.insert(0, dlane[:(1 + B) * A * n * W].zero_())
         ints, floats = launch_params(cfg, row0 + o, n, n_tri, n_sph,
                                      return_primal)
+        tables_g = (tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
+                    g_b.data_ptr(), res_b.prim_id.data_ptr(),
+                    res_b.lit_cnt.data_ptr())
+        bid_ptr = res_b.bounce_id.data_ptr() if B else 0
+        img_ptr = 0 if img is None else img[o:o + n].data_ptr()
+        chain_ptr = 0 if chain is None else chain.data_ptr()
         with torch.cuda.device(dev):
-            err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
-                         g_b.data_ptr(), res_b.prim_id.data_ptr(),
-                         res_b.lit_cnt.data_ptr(),
-                         res_b.bounce_id.data_ptr() if B else 0,
-                         *(t.data_ptr() for t in outs),
-                         0 if img is None else img[o:o + n].data_ptr(),
-                         0 if chain is None else chain.data_ptr(),
-                         ints, floats,
-                         torch.cuda.current_stream(dev).cuda_stream)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if streamed:
+                err = launch(*tables_g, bid_ptr,
+                             *(t.data_ptr() for t in outs), img_ptr,
+                             chain_ptr, ints, floats, stream)
+            elif split:
+                blocks = partial_b.shape[0]
+                err = launch["free"](*tables_g, partial_b.data_ptr(), img_ptr,
+                                     lists.data_ptr(), counts.data_ptr(),
+                                     ints, floats, stream)
+                if err == 0:
+                    FREE_LAUNCHES += 1
+                    off = torch.cumsum(counts[:blocks], 0, dtype=torch.int32)
+                    err = launch["chain"](
+                        *tables_g, bid_ptr, partial_chain.data_ptr(), img_ptr,
+                        chain_ptr, lists.data_ptr(), off.data_ptr(), ints,
+                        floats, stream)
+            else:
+                err = launch["chain"](*tables_g, bid_ptr, partial_b.data_ptr(),
+                                      img_ptr, chain_ptr, 0, 0, ints, floats,
+                                      stream)
         if err != 0:
             raise RuntimeError(f"render_bwd kernel launch failed: CUDA error "
                                f"{err}")
@@ -401,7 +476,10 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
                 sph.shape[0])
         else:
             LAUNCHES += 1
-            cot = table_cotangents(partial_b, n_tri, n_sph, sph.shape[0])
+            sums = partial_b.sum(dim=0)
+            if split:
+                sums = sums + partial_chain[:blocks].sum(dim=0)
+            cot = _sums_cotangents(sums, n_tri, n_sph, sph.shape[0])
         totals = cot if totals is None else tuple(
             t + c for t, c in zip(totals, cot))
     if totals is None:      # no rows: nothing reaches the tables

@@ -240,15 +240,20 @@ def replay_id(ds: DeviceScene, hit: Hit) -> torch.Tensor:
                        hit.obj_id).to(torch.int32)
 
 
+def tris_occlude_rows(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:
+    """[N, T] bool: does triangle j of ``ds``, if it casts a shadow, lie on
+    ray i before the light?"""
+    t, u, v, degenerate = _tri_tuv(ds, start, d)
+    dist = t * t * dot3(d, d)[:, None]
+    return ((t >= 0) & (dist < radius_sq[:, None])
+            & (u >= 0) & (v >= 0) & ((u + v) <= 1) & ~degenerate
+            & (ds.mat[None] != -1.0))
+
+
 def tris_occlude(ds: DeviceScene, start, d, radius_sq) -> torch.Tensor:
     """The triangle half of ``in_shadow``: does any triangle of ``ds`` that
     casts a shadow lie on the ray before the light? [N] bool."""
-    t, u, v, degenerate = _tri_tuv(ds, start, d)
-    dist = t * t * dot3(d, d)[:, None]
-    occ = ((t >= 0) & (dist < radius_sq[:, None])
-           & (u >= 0) & (v >= 0) & ((u + v) <= 1) & ~degenerate
-           & (ds.mat[None] != -1.0))
-    return torch.any(occ, dim=1)
+    return torch.any(tris_occlude_rows(ds, start, d, radius_sq), dim=1)
 
 
 def in_shadow(ds: DeviceScene, start, d, radius_sq, tri_axis=None,

@@ -73,7 +73,17 @@ phase raising on failure and none caught:
    ``flops.measure_fp32_peak`` over every mode and K with the SM clock
    sampled beside it, the probe, and the twin on both records, and times
    each twin beside the backward kernel on the same record (their ratio,
-   registers, spills and SASS census).
+   registers, spills and SASS census);
+10. the live loop (``preview.py``): ``latency_bench``, the headless drive
+   of the reference's event loop (key -> camera controller -> light step ->
+   ``render()`` -> fetch of the float image to the host), 32 key events at
+   256x256 and 512x512 (2x2 AA, 10 samples, 1 bounce: the JAX package's
+   record, ``docs/interactive_latency_r05.json``) and at full_1024, with
+   K1's device time per frame and the host split (quad detection, the rest
+   up to the launch, the fetch); one K1 launch per frame, every frame
+   finite, the last frame's scene within the parity budget of the plain
+   version, the frame moved by a key; writes
+   ``docs/interactive_latency_h100.json``.
 
 The line before the last lists each kernel with its launches on its main
 path, its worst deviation from the plain version at full width, its times
@@ -113,7 +123,11 @@ import torch  # noqa: E402
 
 import uob_raytracer_tpu_torch as rt  # noqa: E402
 from uob_raytracer_tpu_torch import RenderConfig, ShadingModel, baseline_configs  # noqa: E402
-from uob_raytracer_tpu_torch import flops  # noqa: E402
+from uob_raytracer_tpu_torch import flops, preview  # noqa: E402
+# the large-scene workload (the JAX package's bench.py:dense_scene) and the
+# mirror box, where chains pass 16 bounce steps
+from uob_raytracer_tpu_torch.debug import (  # noqa: E402
+    MIRROR_FOCAL, dense_scene, mirror_box)
 from uob_raytracer_tpu_torch.flops import (  # noqa: E402
     bound, bwd_work, fwd_work, nearest_work, occluded_work, segment_sum_work)
 from uob_raytracer_tpu_torch.kernels import (  # noqa: E402
@@ -148,7 +162,6 @@ CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
                        shadow_samples=3, bounces=2)
 GRAD_LEAVES = ("light_pos", "light_color", "tri_v0", "tri_v1", "tri_v2",
                "tri_rgb", "camera_pos", "yaw", "pitch")
-MIRROR_FOCAL = 4400.0
 
 
 def images_match(img, ref, what: str) -> tuple[float, float]:
@@ -206,39 +219,6 @@ def grad_errors(ref: Scene, got: Scene) -> tuple[float, float, str]:
         if r >= rel:
             rel, leaf = r, k
     return rel, ab, leaf
-
-
-def dense_scene(n_tri: int, seed: int = 1):
-    """The large-scene workload of the JAX package (``bench.py:dense_scene``,
-    the same numpy recipe from the same seed): the Cornell box plus random
-    small diffuse triangles inside it, ``n_tri`` triangles in all."""
-    base = rt.cornell_box()
-    rng = np.random.RandomState(seed)
-    extra = n_tri - base.num_triangles
-    if extra <= 0:
-        return base
-    c = (rng.uniform(-0.9, 0.9, (extra, 3)).astype(np.float32)
-         * np.float32([1, 1, 0.3]))
-    c[:, 2] -= 0.2
-    verts = np.stack(
-        [c, c + rng.uniform(0.01, 0.05, (extra, 3)).astype(np.float32),
-         c + rng.uniform(0.01, 0.05, (extra, 3)).astype(np.float32)], axis=1)
-    return rt.add_triangles(base, verts, np.full((extra, 3), 0.6, np.float32),
-                            np.ones((extra,), np.float32))
-
-
-def mirror_box(scene):
-    """The scene with the Cornell box's five walls (triangles 0-9) mirrored,
-    seen from inside the box at (0, -0.3, 0) along the x axis through a 2x
-    zoom (``MIRROR_FOCAL``): rays bounce between the side walls, and many
-    chains end on a block or a small triangle past 16 bounce steps (the
-    mirror box of tests/test_torch_render_bwd.py)."""
-    mat = scene.tri_mat.clone()
-    mat[:10] = 0.0
-    return dataclasses.replace(
-        scene, tri_mat=mat,
-        camera_pos=torch.tensor([0.0, -0.3, 0.0], device=mat.device),
-        yaw=torch.tensor(np.pi / 2, dtype=torch.float32, device=mat.device))
 
 
 def with_grad(scene, names=GRAD_LEAVES):
@@ -1832,6 +1812,73 @@ def main() -> None:
               f"{t['k2_bound'][1]} (data sheet), "
               f"{bound(*bwd_work(tcfg, cornell, tres), peak_fp32=add_peak)[0]:.4f}"
               f" ms at the measured no-FMA peak", flush=True)
+
+    # --- 12. the live loop (preview.py): the headless keypress -> frame
+    # bench on the card at the JAX record's configs (256x256 and 512x512,
+    # 2x2 AA, 10 samples, 1 bounce) and at the reference's own window,
+    # full_1024; each driven with the counts at 0 and read just after ---
+    t_live = time.perf_counter()
+    live = []
+    for width, bounces in ((256, 1), (512, 1), (1024, 10)):
+        args = preview.parse_args(["--latency-bench", "--width", str(width),
+                                   "--samples", "10", "--bounces",
+                                   str(bounces)])
+        loop = preview.LiveLoop(preview.build_scene(args), preview.config(args))
+        if width == 1024 and loop.cfg != RenderConfig():
+            raise AssertionError(f"live loop at 1024: {loop.cfg}")
+        reset_counts()
+        out = preview.latency_bench(args, loop)
+        torch.cuda.synchronize()
+        got = counts()
+        # one K1 launch per tick (warm-up, events, profiled ticks), nothing
+        # else
+        if (out["forward_launches"] != out["n_events"]
+                or got[0] < 1 + out["n_events"] or got[1:] != (0, 0, 0, 0)
+                or partial_counts() != (0, 0)):
+            raise AssertionError(f"live loop {width}: {out['forward_launches']} "
+                                 f"launches in {out['n_events']} events, "
+                                 f"counts {got}, {partial_counts()}")
+        if not out["all_frames_finite"]:
+            raise AssertionError(f"live loop {width}: a frame is not finite")
+        # the last frame's scene against the plain version
+        s, cfg = loop.frame_scene, loop.cfg
+        img = rt.render(s, cfg).image
+        worst, frac = images_match(img, render_fwd.render_fused_plain(s, cfg)[0],
+                                   f"live loop {width}")
+        # the image moves after a key (tests/test_interactive.py)
+        loop.ctl.key("Left")
+        loop.ctl.key("i")
+        moved = rt.render(loop.ctl.apply(s), cfg).image
+        shift = (moved - img).abs().max().item()
+        if shift <= 0.01:
+            raise AssertionError(f"live loop {width}: the frame moved by "
+                                 f"{shift:.3g} after Left, i")
+        out["launches_in_run"] = got[0]
+        out["vs_plain_worst"], out["vs_plain_beyond_tight"] = worst, frac
+        out["moved_after_keys"] = shift
+        live.append(out)
+        print(f"live loop {width}x{width} {out['config']} [{card}]: p50 "
+              f"{out['keypress_to_frame_ms']['p50']:.3f} ms, p95 "
+              f"{out['keypress_to_frame_ms']['p95']:.3f} ms, min "
+              f"{out['keypress_to_frame_ms']['min']:.3f} ms over "
+              f"{out['n_events']} key events ({out['fps_at_p50']:.1f} FPS at "
+              f"p50); K1 device {out['forward_device_ms']:.4f} ms a frame; "
+              f"host split {out['host_split_ms']}; fetch floor "
+              f"{out['fetch_floor_ms']:.4f} ms; {got[0]} K1 launches; last "
+              f"frame vs plain worst {worst:.3g}, beyond {TIGHT} {frac:.3%}; "
+              f"moved {shift:.3g} after Left, i", flush=True)
+    latency_json = os.path.join(ROOT, "docs", "interactive_latency_h100.json")
+    with open(latency_json, "w") as f:
+        json.dump({"method": "chip_smoke.py phase 12: "
+                   "uob_raytracer_tpu_torch.preview.latency_bench, the "
+                   "headless drive of the live loop (CameraController key "
+                   "-> light step -> render() -> fetch of the float image "
+                   "to the host) on one card; 32 keypress round trips each, "
+                   "the warm-up frame left out", "card": card,
+                   "configs": live}, f, indent=1)
+        f.write("\n")
+    print(f"live loop phase: {time.perf_counter() - t_live:.1f} s, wrote "
+          f"{os.path.relpath(latency_json, ROOT)}", flush=True)
 
     full = times["full_1024"]
     # K2's split on the full_1024 record: the chain-free launch's pixels,

@@ -83,7 +83,11 @@ phase raising on failure and none caught:
    up to the launch, the fetch); one K1 launch per frame, every frame
    finite, the last frame's scene within the parity budget of the plain
    version, the frame moved by a key; writes
-   ``docs/interactive_latency_h100.json``.
+   ``docs/interactive_latency_h100.json``;
+11. the bench (``uob_raytracer_tpu_torch/bench.py``): the logical ray
+   counts of its seven configs within 0.1% of those ``ROADMAP.md`` records,
+   ``bench_config`` on mirror_512 and streamed_8192 (finite gradients,
+   every key, finite times), and the headline's JSON line.
 
 The line before the last lists each kernel with its launches on its main
 path, its worst deviation from the plain version at full width, its times
@@ -123,7 +127,12 @@ import torch  # noqa: E402
 
 import uob_raytracer_tpu_torch as rt  # noqa: E402
 from uob_raytracer_tpu_torch import RenderConfig, ShadingModel, baseline_configs  # noqa: E402
-from uob_raytracer_tpu_torch import flops, preview  # noqa: E402
+from uob_raytracer_tpu_torch import bench, flops, preview  # noqa: E402
+# the profiler's device times, shared with the bench
+from uob_raytracer_tpu_torch.bench import (  # noqa: E402
+    k2_device_ms, kernel_device_ms)
+# the tp pipeline on one process (the frame of bench.py --tp-bench)
+from uob_raytracer_tpu_torch.bench import partial_image as partial_frame  # noqa: E402
 # the large-scene workload (the JAX package's bench.py:dense_scene) and the
 # mirror box, where chains pass 16 bounce steps
 from uob_raytracer_tpu_torch.debug import (  # noqa: E402
@@ -347,55 +356,6 @@ def median_ms(fn, warmup: int, n: int) -> float:
     return statistics.median(time_frames(fn, warmup, n))
 
 
-def kernel_device_ms(fn, kernel: str, n: int = 10, per_call: int = 1) -> float:
-    """Mean device time of one launch of ``kernel`` over n calls of fn
-    (``per_call`` launches each), from torch.profiler (a wrapper's time
-    also holds its host-side work). The tracer may drop the records of some
-    launches: the mean is over the launches it kept, at least half of them,
-    in at most five profiler runs. It never keeps more than were made."""
-    calls, n = n, n * per_call
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    seen = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [k for k in prof.key_averages() if kernel in k.key]
-        count = sum(k.count for k in rows)
-        seen.append(count)
-        if count > n:
-            raise AssertionError(f"profiler saw {count} {kernel} launches "
-                                 f"where {n} were made")
-        if 2 * count >= n:
-            if count != n:
-                print(f"profiler kept {count} of {n} {kernel} launches",
-                      flush=True)
-            return sum(k.self_device_time_total for k in rows) / count / 1000.0
-    raise AssertionError(f"profiler kept {seen} of {n} {kernel} launches "
-                         f"in five profiler runs")
-
-
-def k2_device_ms(fn, n: int = 10) -> tuple[float, float]:
-    """Device ms of the whole-table backward's chain launch and of its
-    chain-free launch (0 where the call makes none: past 32 objects) in
-    each of n calls of fn."""
-    chain = kernel_device_ms(fn, "render_bwd_kernel", n=n)
-    free = (kernel_device_ms(fn, "render_bwd_free_kernel", n=n)
-            if render_bwd_free_launches(fn) else 0.0)
-    return chain, free
-
-
-def render_bwd_free_launches(fn) -> int:
-    """Chain-free launches one call of fn makes."""
-    before = render_bwd.FREE_LAUNCHES
-    fn()
-    torch.cuda.synchronize()
-    return render_bwd.FREE_LAUNCHES - before
-
-
 def segment_sum_device_ms(fn, n: int = 10) -> float:
     """Device time of one segmented sum (both of its passes) in each of n
     calls of fn, which makes one."""
@@ -429,13 +389,6 @@ def counts() -> tuple[int, int, int, int, int]:
 # The sharded path: the wavefront pipeline with its triangle scans in the
 # partial-scan kernels, on one process and across ranks
 # ---------------------------------------------------------------------------
-
-def partial_frame(scene, cfg):
-    """The frame through ``shade`` with the kernel route and no sharded axis
-    (the tp pipeline on one process): the AA mean of ``render_flat``."""
-    colors = render_fwd.render_flat(scene, cfg, tri_pass="kernel")
-    return colors.sum(dim=2) / float(colors.shape[2])
-
 
 def loss_and_grads(render_fn, scene, target):
     """(loss, {leaf: gradient}) of the MSE of ``render_fn(scene)`` against
@@ -1777,8 +1730,8 @@ def main() -> None:
     k2_sass = flops.sass_census("render_bwd_kernel<false>")
     for tname, t in twins.items():
         tw, tcfg, tres = t["twin"], t["cfg"], t["res"]
-        t["dev"] = kernel_device_ms(tw["run"], "bwd_twin_kernel")
-        t["k2_dev"] = sum(k2_device_ms(t["k2"]))
+        over = bench.twin_over_k2(tw["run"], t["k2"])
+        t["dev"], t["k2_dev"] = over["twin_ms"], over["k2_ms"]
         t["ms"] = median_ms(tw["run"], 2, 5)
         t["plain"] = median_ms(tw["run_plain"], 0, 2)
         rays = tres.prim_id.numel()
@@ -1880,6 +1833,40 @@ def main() -> None:
     print(f"live loop phase: {time.perf_counter() - t_live:.1f} s, wrote "
           f"{os.path.relpath(latency_json, ROOT)}", flush=True)
 
+    # --- 13. the bench (bench.py): the logical ray counts of its seven
+    # configs against the counts ROADMAP.md records for them (a property of
+    # scene and config), bench_config on mirror_512 and streamed_8192, and
+    # the headline's JSON line ---
+    t_bench = time.perf_counter()
+    ray_counts = {"cpu_ref_256": 120_670, "soft_shadows_512": 3_998_064,
+                  "mirror_512": 2_772_702, "glass_fresnel_512": 2_773_715,
+                  "full_1024": 44_337_413, "streamed_8192": 258_432,
+                  "headline": 10_646_319}
+    bench_cases = {name: (c, build) for name, c, build in bench.sweep()}
+    bench_cases["headline"] = (bench.ROOFLINE_CFG,
+                               lambda dev: rt.cornell_box(device=dev))
+    bench_scenes = {}
+    for name, want in ray_counts.items():
+        c, build = bench_cases[name]
+        bench_scenes[name] = build(torch.device("cuda"))
+        got = bench.logical_ray_count(bench_scenes[name], c)
+        diff = (got - want) / want
+        print(f"bench ray count {name}: {got:,} (ROADMAP.md {want:,}, "
+              f"difference {diff:+.3e}, budget 1e-3)", flush=True)
+        if abs(diff) > 1e-3:
+            raise AssertionError(f"bench ray count {name}: {got} against "
+                                 f"{want}")
+    for name in ("mirror_512", "streamed_8192"):
+        out = bench.bench_config(name, bench_cases[name][0],
+                                 bench_scenes[name], 4)
+        p50s = [out[k]["p50"] for k in ("fwd_ms", "fwd_bwd_ms", "render_ms")]
+        if (not out["grads_finite"] or None in out.values()
+                or not all(np.isfinite(p) and p > 0 for p in p50s)):
+            raise AssertionError(f"bench_config {name}: {out}")
+        print(f"bench {name} [{card}]: {json.dumps(out)}", flush=True)
+    bench.main(["--headline-only"])
+    print(f"bench phase: {time.perf_counter() - t_bench:.1f} s", flush=True)
+
     full = times["full_1024"]
     # K2's split on the full_1024 record: the chain-free launch's pixels,
     # the chain share and the scatter's shuffles (flops.py)
@@ -1904,15 +1891,15 @@ def main() -> None:
         sheet and against the measured no-FMA peak (the add chain at K=16,
         one instruction per operation; ``measured_work`` where the
         operations there are counted otherwise)."""
-        bnd = bound(*work)
-        at_peak = bound(*(measured_work or work), peak_fp32=add_peak)
+        row = bench.roofline_row(work, device_ms, add_peak, measured_work)
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": n_launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": library_ms, "device_ms": device_ms,
-                "bound_ms_measured_peak": at_peak[0],
-                "bound_by_measured_peak": at_peak[1], **more}
+                "bound_ms_measured_peak": row["bound_ms_measured_peak"],
+                "bound_by_measured_peak": row["bound_by_measured_peak"],
+                **more}
 
     kernels = [
         entry("K1 render_fwd (whole-table)", "render_fwd.cu",

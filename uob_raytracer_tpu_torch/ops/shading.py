@@ -101,7 +101,10 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
     event kills the ray; otherwise TIR reflects. With ``cfg.fresnel``
     refraction is attenuated by Schlick transmittance (extension).
     ``bid`` lists, per step, the object each still-alive ray hit
-    (``replay_id`` encoding; -1 for a miss or a ray not alive)."""
+    (``replay_id`` encoding; -1 for a miss or a ray not alive).
+    ``bounce_rays`` is the number of re-intersections the loop ran: the
+    alive rays summed over the steps, an int64 tensor on the rays' device
+    (no host read, so the render path gains no synchronisation)."""
     n_rays = d.shape[0]
     dev = d.device
     air = _f32(cfg.ior_air)
@@ -118,6 +121,7 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
         mat=primary.mat,
         medium=torch.full((n_rays,), air, device=dev),
         bid=[],
+        bounce_rays=torch.zeros((), dtype=torch.int64, device=dev),
     )
     for _ in range(cfg.bounces):
         refl = _reflect_dir(s["d"], s["normal"])
@@ -159,6 +163,7 @@ def trace_specular(ds: DeviceScene, cfg: RenderConfig, primary: Hit, d,
             mat=torch.where(cont, hit.mat, s["mat"]),
             medium=torch.where(cont, new_medium, s["medium"]),
             bid=s["bid"] + [torch.where(alive, replay_id(ds, hit), -1)],
+            bounce_rays=s["bounce_rays"] + alive.sum(),
         )
     return s
 

@@ -11,7 +11,7 @@ Material encoding follows the reference convention (``Source/TestModelH.h:58-59`
 
 The constant tables (the Cornell triangles, the analytic spheres, the OBJ
 loader) are built in numpy exactly as the JAX package builds them, so a
-scene made here is bit-identical to ``uob_raytracer_tpu.cornell_box``'s.
+scene made here is bit-identical to the JAX package's ``cornell_box``.
 """
 from __future__ import annotations
 
@@ -290,7 +290,7 @@ def animate_light(light_x: float, lor: bool) -> tuple[float, bool]:
 # --------------------------------------------------------------------------
 # Carrying a scene across: numpy leaves (e.g. ``np.asarray`` of each leaf of
 # the JAX package's Scene) <-> this package's Scene, and .npz checkpoints
-# with the same keys as ``uob_raytracer_tpu.scene.save_scene``.
+# with the same keys as the JAX package's ``scene.save_scene``.
 # --------------------------------------------------------------------------
 
 def scene_from_numpy(leaves: dict, device=None) -> Scene:

@@ -25,7 +25,10 @@ phase raising on failure and none caught:
    kernel against its plain version at 600 triangles (128x16 mode cases,
    with and without quads, a row band) and at 8,192 (128x128, 2x2 AA, 3
    samples, 2 bounces), and bit for bit against the whole-table kernel on
-   the scenes both run; the streamed backward kernel with its segmented
+   the scenes both run (image, packed image and record: the Cornell mode
+   cases; the five baseline configs at 256x256 with the quads and without;
+   at 64x64 1, 16 and 33 shadow samples, 1, 4 and 9 AA rays, a width of 50
+   and a row band); the streamed backward kernel with its segmented
    sum against its plain version at 600 and 8,192 triangles, against the
    whole-table kernel at 600, two runs bit-equal; then drives ``render()``
    on the 8,192-triangle scene at 128x128 and at 512x512, and five
@@ -817,6 +820,35 @@ def main() -> None:
                        what=f"128x16 cornell {name}, streamed",
                        kernel="streamed")
 
+    # 7a'. the whole-table forward kernel (one thread per AA ray, the
+    # hoisted shadow scan) bit for bit against the streamed one: the five
+    # baseline configs at 256x256, and at 64x64 the shadow scan's chunks of
+    # samples (1, 16, 33), AA counts 1, 4 and 9, a width that is not a
+    # multiple of 32 and a row band; each with the quads and without
+    c64 = RenderConfig(width=64, height=64)
+    k1_cases = [(f"{name} 256x256", *scenes[name],
+                 dataclasses.replace(cfg, width=256, height=256), None, None)
+                for name, cfg in baseline_configs().items()]
+    k1_cases += [(f"64x64 {kw}", cornell, q_cornell,
+                  dataclasses.replace(c64, **kw), None, None)
+                 for kw in (dict(shadow_samples=1), dict(shadow_samples=16),
+                            dict(shadow_samples=33), dict(aa_x=1, aa_y=1),
+                            dict(aa_x=3, aa_y=3), dict(width=50))]
+    k1_cases.append(("50x64 rows [13, 40)", cornell, q_cornell,
+                     dataclasses.replace(c64, width=50), 13, 27))
+    for what, sc, quads, cfg, row0, rows in k1_cases:
+        for q in (quads, None):
+            whole, streamed = (render_fwd.render_fused_res(
+                sc, cfg, row0, rows, q, _kernel=k) for k in ("whole", "streamed"))
+            torch.cuda.synchronize()
+            if not (same_frame(whole, streamed) and torch.equal(
+                    whole[0].view(torch.int32), streamed[0].view(torch.int32))):
+                raise AssertionError(f"K1 vs K3f {what} quads={q is not None}: "
+                                     f"image, packed image or record differ")
+    print(f"K1 vs K3f: image, packed image and record bit for bit on "
+          f"{2 * len(k1_cases)} frames ({', '.join(c[0] for c in k1_cases)}; "
+          f"each with the quads and without)", flush=True)
+
     # 7b. 600 triangles, 128x16: the mode cases, quads and no quads, a band
     d600 = dense_scene(600)
     q600 = detect_shadow_quads(d600)
@@ -1246,6 +1278,20 @@ def main() -> None:
               f"plain backward {med['plain_bwd']:.2f} ms"
               f"{' (in 8 row bands)' if name == 'full_1024' else ''} (n=3)",
               flush=True)
+
+    # K1 at the bench's headline (512x512, 2x2 AA, 10 samples, 1 bounce),
+    # as render() launches it
+    hcfg = bench.ROOFLINE_CFG
+    res_h = render_fwd.render_fused_res(cornell, hcfg, quads=q_cornell)[2]
+    k1_head = {"dev": kernel_device_ms(lambda: render_fwd.render_fused_raw(
+        cornell, hcfg, quads=q_cornell), "render_fwd_kernel"),
+               "work": fwd_work(hcfg, cornell, q_cornell, res_h, False),
+               "work_per_sample": fwd_work(hcfg, cornell, q_cornell, res_h,
+                                           False, per_sample=True)}
+    print(f"time K1 at the headline 512x512 aa4 s10 b1 [{card}]: device "
+          f"{k1_head['dev']:.4f} ms, bound {bound(*k1_head['work'])[0]:.4f} "
+          f"ms ({bound(*k1_head['work_per_sample'])[0]:.4f} at the per-sample "
+          f"count)", flush=True)
 
     # the large scene: the same measurements on the streamed path
     def big_fwd():
@@ -1901,17 +1947,48 @@ def main() -> None:
                 "bound_by_measured_peak": row["bound_by_measured_peak"],
                 **more}
 
+    k1_res = flops.kernel_resources("render_fwd_kernel")
+    k1_more = {"registers": k1_res["registers"],
+               "spill_stores": k1_res["spill_stores"],
+               "spill_loads": k1_res["spill_loads"]}
+    full_quads = scenes["full_1024"][1]
+
+    def per_sample(work, device_ms):
+        """The share against the count of a scan that takes one sample at
+        a time (the kernel's before it hoisted the row invariants)."""
+        row = bench.roofline_row(work, device_ms, add_peak)
+        return {k: row[k] for k in ("operations", "bound_ms",
+                                    "bound_ms_measured_peak")}
+
+    head = bench.roofline_row(k1_head["work"], k1_head["dev"], add_peak)
     kernels = [
         entry("K1 render_fwd (whole-table)", "render_fwd.cu",
               f"{jax_fwd}:649", launches, worst_by_cfg["full_1024"],
               full["fwd"], full["plain"], full["fwd_work"], full["fwd_dev"],
-              at="full_1024, render()", render_ms=full["render"]),
+              at="full_1024, render()", render_ms=full["render"], **k1_more,
+              blocks_per_sm=render_fwd.blocks_per_sm(sc_full, cfg_full,
+                                                     full_quads),
+              per_sample_count=per_sample(
+                  fwd_work(cfg_full, sc_full, full_quads, res_full, False,
+                           per_sample=True), full["fwd_dev"]),
+              headline={"at": "512x512 aa4 s10 b1, render_fused_raw with "
+                        "the quads", "device_ms": k1_head["dev"],
+                        **{k: head[k] for k in (
+                            "operations", "bound_ms", "bound_ms_measured_peak")},
+                        "blocks_per_sm": render_fwd.blocks_per_sm(
+                            cornell, hcfg, q_cornell),
+                        "per_sample_count": per_sample(
+                            k1_head["work_per_sample"], k1_head["dev"])}),
         entry("K1r render_fwd with residuals", "render_fwd.cu",
               f"{jax_fwd}:670", train_launches[0], worst_by_cfg["full_1024"],
               full["fwd_rec"], full["plain"], full["fwd_train_work"],
               full["fwd_train_dev"], at="full_1024, 5 train_steps (record, "
               "no quads)", device_ms_with_quads=full["fwd_rec_dev"],
-              bound_ms_with_quads=full["fwd_rec_bound"][0]),
+              bound_ms_with_quads=full["fwd_rec_bound"][0], **k1_more,
+              blocks_per_sm=render_fwd.blocks_per_sm(sc_full, cfg_full),
+              per_sample_count=per_sample(
+                  fwd_work(cfg_full, sc_full, None, res_full, True,
+                           per_sample=True), full["fwd_train_dev"])),
         entry("K2 render_bwd (whole-table)", "render_bwd.cu",
               f"{jax_bwd}:366", train_launches[1], bwd_abs, full["bwd"],
               full["plain_bwd"], full["bwd_work"], full["bwd_dev"],

@@ -1,7 +1,7 @@
 """Device times of the port's kernels on one NVIDIA GPU, old beside new.
 
     python3 chip_timing.py [--tag NAME] [--out FILE] [--npz FILE]
-    python3 chip_timing.py --split [--tag NAME] [--out FILE]
+    python3 chip_timing.py --split [k1|k2k5|all] [--tag NAME] [--out FILE]
     python3 chip_timing.py --compare A.npz B.npz
 
 The default pass times, on the scenes and configs of ``chip_smoke.py``
@@ -9,6 +9,11 @@ The default pass times, on the scenes and configs of ``chip_smoke.py``
 samples, 2 bounces; at 512x512 with 1 AA ray; the Cornell box at
 full_1024; the mirror boxes past 16 bounces):
 
+- the whole-table forward kernel (K1) on the Cornell box at the five
+  baseline configs at full size and at the bench's headline (512x512, 2x2
+  AA, 10 samples, 1 bounce), as ``render()`` launches it (the quads) and as
+  ``train_step`` launches it (the record, no quads), each beside the
+  streamed forward kernel (K3f) pinned on the same frame;
 - the streamed forward kernel (K3f) as ``render()`` launches it (quads)
   and as ``train_step`` launches it (the record, no quads), and at 512x512;
 - the whole-table backward (K2) at full_1024, its deep instance on the
@@ -25,28 +30,36 @@ full_1024; the mirror boxes past 16 bounces):
   the same rows;
 - a dense_8192 ``train_step``.
 
-``--npz`` saves K5's bits on the frame's three occlusion batches and K2's
-gradients and replayed image at full_1024 and on the mirror box, so that
-two runs (parent and change) can be compared bit for bit with
+``--npz`` saves K1's image, packed image and record (pid, lit, bid) on
+those Cornell frames, K5's bits on the frame's three occlusion batches and
+K2's gradients and replayed image at full_1024 and on the mirror box, so
+that two runs (parent and change) can be compared bit for bit with
 ``--compare``, which needs no card.
 
-``--split`` measures what sets the gaps of K2 and K5 to their bounds
-instead: K7 beside its split instances (no warp shuffles; no chain
+``--split`` measures what sets the kernels' gaps to their bounds instead.
+Its K1 part (``--split k1``), at the headline and at full_1024, as
+``render()`` and as ``train_step`` launch K1: K1's ptxas registers and
+spills, the blocks an SM holds and the waves of the grid, and K1's device
+time at the config, with 1 shadow sample and with no bounce (what the
+shadow pass and the bounce loop take). Its K2 and K5 part (``--split
+k2k5``): K7 beside its split instances (no warp shuffles; no chain
 storage and no bounce sweeps; ptxas held to 4 and to 5 blocks an SM),
 each with its ptxas registers, beside K2, and the record's chain share
 and scatter shuffles (``flops.chain_share``, ``flops.scatter_work``) at
 full_1024; and on the three occlusion batches, each ray's first occluding
 row (``flops.first_occluder``), the lane-rows a thread per ray uses
 (``flops.occluded_lanes``) and K5's device time beside K4's on the same
-rays.
+rays. ``--split`` alone runs both parts.
 
-It imports ``uob_raytracer_tpu_torch`` from the directory it sits in and,
-in the default pass, uses only wrapper calls that every version of the
-port since PR 6 has, so the same file copied into a checkout of an earlier
-commit times that commit's kernels: run parent, change, change, parent on
-one card, one after another, to compare them. Prints the card's name and
-power limit, then one JSON line; ``--out`` appends that line to a file
-too. Exits non-zero without a card.
+It imports ``uob_raytracer_tpu_torch`` from the directory it sits in and
+uses only wrapper calls that the port has had since its deep backward
+instances and row bands (the K1 split's blocks per SM and waves need
+``render_fwd.blocks_per_sm`` and ``pixels_per_block`` as well, and read
+null in a checkout without them), so the same file copied into a checkout
+of an earlier commit times that commit's kernels: run parent, change,
+change, parent on one card, one after another, to compare them. Prints
+the card's name and power limit, then one JSON line; ``--out`` appends
+that line to a file too. Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -62,7 +75,8 @@ import numpy as np
 import torch
 
 import uob_raytracer_tpu_torch as rt
-from uob_raytracer_tpu_torch import RenderConfig, flops
+from uob_raytracer_tpu_torch import (RenderConfig, ShadingModel,
+                                     baseline_configs, flops)
 from uob_raytracer_tpu_torch.kernels import (bwd_twin, partial, render_bwd,
                                              render_fwd)
 from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads
@@ -74,6 +88,10 @@ CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
 CFG_512 = RenderConfig(width=512, height=512, aa_x=1, aa_y=1,
                        shadow_samples=3, bounces=2)
 MIRROR_FOCAL = 4400.0
+# the bench's headline (bench_torch.py; the JAX package's roofline config)
+HEADLINE = RenderConfig(width=512, height=512, aa_x=2, aa_y=2,
+                        shadow_samples=10, bounces=1)
+K1_RECORD = ("pid", "lit", "bid")
 
 
 def dense_scene(n_tri: int, seed: int = 1):
@@ -209,6 +227,85 @@ def twin_full_1024(cornell, res):
                                           target_registers=k2["registers"])
 
 
+def k1_frames():
+    """The Cornell frames K1 is timed on: (name, scene, config, quads) for
+    the five baseline configs at full size and the headline; cpu_ref gets
+    the sphere-free box with the host constants and no quads, as
+    ``chip_smoke.py`` renders it."""
+    frames = []
+    for name, cfg in {**baseline_configs(), "headline_512": HEADLINE}.items():
+        scene = rt.cornell_box(
+            spheres=not cfg.cpu_ref,
+            shading=cfg.shading if cfg.cpu_ref else ShadingModel.DEVICE)
+        quads = None if cfg.cpu_ref else detect_shadow_quads(scene)
+        frames.append((name, scene, cfg, quads))
+    return frames
+
+
+def k1_launch(scene, cfg, quads, train: bool, kernel: str = "whole"):
+    """K1 (or K3f with ``kernel="streamed"``) as ``render()`` launches it
+    (the quads, no record) or, with ``train``, as ``train_step`` does (the
+    record, no quads)."""
+    if train:
+        return render_fwd.render_fused_res(scene, cfg, quads=None,
+                                           _kernel=kernel)
+    return render_fwd.render_fused_raw(scene, cfg, quads=quads, _kernel=kernel)
+
+
+def k1_times(out: dict, saved: dict | None) -> None:
+    """K1's and K3f's device times on the Cornell frames (module
+    docstring); ``saved`` gets K1's outputs on each."""
+    rows = {}
+    for name, scene, cfg, quads in k1_frames():
+        row = {}
+        for launch, train in (("render", False), ("train", True)):
+            for kern, sym in (("k1", "render_fwd_kernel"),
+                              ("k3f", "render_fwd_streamed_kernel")):
+                row[f"{kern}_{launch}_ms"] = kernel_ms(device_kernels(
+                    lambda t=train, k=kern: k1_launch(
+                        scene, cfg, quads, t,
+                        "whole" if k == "k1" else "streamed")), sym)
+            if saved is not None:
+                img, packed, res = render_fwd.render_fused_res(
+                    scene, cfg, quads=None if train else quads)
+                key = f"k1_{name}_{launch}"
+                saved[f"{key}_image"] = img.cpu().numpy()
+                saved[f"{key}_packed"] = packed.view(torch.int32).cpu().numpy()
+                for field, t in zip(K1_RECORD, res):
+                    saved[f"{key}_{field}"] = t.cpu().numpy()
+        rows[name] = row
+    out["k1"] = rows
+    out["k1_resources"] = flops.kernel_resources("render_fwd_kernel")
+
+
+def k1_split(out: dict) -> None:
+    """K1's resources, occupancy and device time at one shadow sample and
+    at no bounce, at the headline and at full_1024 (module docstring)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occupancy = getattr(render_fwd, "blocks_per_sm", None)
+    ppb = getattr(render_fwd, "pixels_per_block", None)
+    scene = rt.cornell_box()
+    quads = detect_shadow_quads(scene)
+    rows = {"resources": flops.kernel_resources("render_fwd_kernel"),
+            "sms": sms}
+    for name, cfg in (("headline_512", HEADLINE), ("full_1024", RenderConfig())):
+        for launch, train in (("render", False), ("train", True)):
+            q = None if train else quads
+            grid = -(-cfg.width * cfg.height
+                     // (ppb(cfg.aa_rays) if ppb else render_fwd.THREADS))
+            per_sm = occupancy(scene, cfg, q) if occupancy else None
+            row = {"blocks": grid, "blocks_per_sm": per_sm,
+                   "waves": grid / (per_sm * sms) if per_sm else None}
+            for var, c in (("ms", cfg),
+                           ("s1_ms", dataclasses.replace(cfg, shadow_samples=1)),
+                           ("b0_ms", dataclasses.replace(cfg, bounces=0))):
+                row[var] = kernel_ms(device_kernels(
+                    lambda c=c, t=train: k1_launch(scene, c, quads, t)),
+                    "render_fwd_kernel")
+            rows[f"{name}_{launch}"] = row
+    out["k1_split"] = rows
+
+
 def split_pass(out: dict) -> None:
     """What sets the gaps of K2 and K5 (see the module docstring)."""
     cornell = rt.cornell_box()
@@ -276,6 +373,7 @@ def split_pass(out: dict) -> None:
 def default_pass(out: dict, npz: str | None) -> None:
     """The device times of the kernels old beside new (module docstring)."""
     saved = {}
+    k1_times(out, saved if npz else None)
     big = dense_scene(8192)
     q_big = detect_shadow_quads(big)
     res_t = render_fwd.render_fused_res(big, CFG_BIG, quads=None)[2]
@@ -367,13 +465,14 @@ def default_pass(out: dict, npz: str | None) -> None:
     out["k2_resources"] = flops.kernel_resources("render_bwd_kernel<false>")
     if npz:
         os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
-        np.savez(npz, **saved)
+        np.savez_compressed(npz, **saved)
         out["npz"] = npz
 
 
 def compare(a: str, b: str) -> dict:
     """Per array of two ``--npz`` files: bit-equal, the worst absolute
-    difference, and max|a-b| / max(max|a|, 1)."""
+    difference, and max|a-b| / max(max|a|, 1); and whether all are
+    bit-equal."""
     out = {}
     with np.load(a) as za, np.load(b) as zb:
         for k in sorted(set(za.files) & set(zb.files)):
@@ -384,6 +483,7 @@ def compare(a: str, b: str) -> dict:
             out[k] = {"bit_equal": bool(np.array_equal(
                 x.view(np.uint8), y.view(np.uint8))),
                       "max_abs": worst, "rel": worst / scale}
+    out["all_bit_equal"] = all(v["bit_equal"] for v in out.values())
     return out
 
 
@@ -392,7 +492,8 @@ def main() -> None:
     ap.add_argument("--tag", default=os.path.basename(ROOT))
     ap.add_argument("--out", default=None)
     ap.add_argument("--npz", default=None)
-    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--split", nargs="?", const="all", default=None,
+                    choices=("k1", "k2k5", "all"))
     ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
     args = ap.parse_args()
     if args.compare:
@@ -406,10 +507,12 @@ def main() -> None:
             check=True).stdout.strip().splitlines()[0]
         print(card, flush=True)
         out = {"tag": args.tag, "card": card, "source": ROOT,
-               "pass": "split" if args.split else "default"}
-        if args.split:
+               "pass": f"split {args.split}" if args.split else "default"}
+        if args.split in ("k1", "all"):
+            k1_split(out)
+        if args.split in ("k2k5", "all"):
             split_pass(out)
-        else:
+        if not args.split:
             default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:

@@ -685,7 +685,8 @@ def bench_roofline(scene: Scene, iters: int) -> dict:
     ``flops.py``: K1's and K2's device times, their bytes and operations
     (``fwd_work``, ``bwd_work``, counted from this run's record), their
     bounds at the data sheet and at the measured no-FMA peak (K6, the add
-    chain at K=16), the bounce steps' tile fractions, both kernels' static
+    chain at K=16; K1's also against the per-sample count), the
+    bounce steps' tile fractions, both kernels' static
     SASS census and K7's time over K2's. The JAX package's jaxpr census,
     critical path and chain-matched ceilings have no counterpart (ROADMAP
     Queue 1 item 4): the card's bound is the measured peak."""
@@ -712,6 +713,10 @@ def bench_roofline(scene: Scene, iters: int) -> dict:
     add_peak = peaks["add"]
     k1 = roofline_row(flops.fwd_work(cfg, scene, quads, res, False), k1_ms,
                       add_peak)
+    old = roofline_row(flops.fwd_work(cfg, scene, quads, res, False,
+                                      per_sample=True), k1_ms, add_peak)
+    k1["per_sample_count"] = {k: old[k] for k in (
+        "operations", "share", "share_measured_peak")}
     k2_row = roofline_row(flops.bwd_work(cfg, scene, res), k2_chain + k2_free,
                           add_peak)
     k2_row["chain_ms"], k2_row["free_ms"] = k2_chain, k2_free

@@ -305,6 +305,41 @@ __device__ __forceinline__ bool occ_row(const float* R, int ecol, bool is_quad, 
   return base && inb;
 }
 
+// occ_row split in two for a scan that tests many sample rays of one
+// shading point against a row: the part that depends only on the row and
+// the start (b, t_num, t_num^2, b x e2, e1 x b) once per row, then the
+// sample part per sample ray. Both are occ_row's operations in occ_row's
+// order, so each sample gets occ_row's answer bit for bit.
+struct OccRow {
+  V3 E, B2, B1;
+  float t_num, t_num2;
+};
+
+__device__ __forceinline__ OccRow occ_row_invariants(const float* R, int ecol, V3 start) {
+  const V3 v0 = load3(R), e1 = load3(R + 3), e2 = load3(R + 6);
+  OccRow w;
+  w.E = load3(R + ecol);
+  const V3 b = sub(start, v0);
+  w.t_num = dot(b, w.E);
+  w.t_num2 = w.t_num * w.t_num;
+  w.B2 = cross(b, e2);
+  w.B1 = cross(e1, b);
+  return w;
+}
+
+__device__ __forceinline__ bool occ_row_sample(const OccRow& w, bool is_quad, V3 dir, float dds,
+                                               float radius_sq) {
+  const float dA = -dot(dir, w.E);
+  const float u_n = -dot(dir, w.B2);
+  const float v_n = -dot(dir, w.B1);
+  const float dA2 = dA * dA;
+  const bool base = (w.t_num * dA >= 0.0f) && (w.t_num2 * dds < radius_sq * dA2) &&
+                    (u_n * dA >= 0.0f) && (v_n * dA >= 0.0f);
+  const bool inb = is_quad ? (u_n * dA <= dA2) && (v_n * dA <= dA2)
+                           : ((u_n + v_n) * dA <= dA2) && (dA != 0.0f);
+  return base && inb;
+}
+
 __device__ __forceinline__ bool occ_spheres(const Params& P, const float* sph, V3 start, V3 dir,
                                             float dds, float radius_sq) {
   for (int i = 0; i < P.n_sph; ++i) {
@@ -319,6 +354,29 @@ __device__ __forceinline__ bool occ_spheres(const Params& P, const float* sph, V
       return true;
   }
   return false;
+}
+
+// occ_spheres' test of one sphere split the same way: L = start - c and
+// c_q = L.L - r^2 once per sphere, the roots per sample ray.
+struct OccSph {
+  V3 L;
+  float c_q;
+};
+
+__device__ __forceinline__ OccSph occ_sph_invariants(const float* S, V3 start) {
+  OccSph w;
+  w.L = sub(start, load3(S));
+  w.c_q = dot(w.L, w.L) - S[3];
+  return w;
+}
+
+__device__ __forceinline__ bool occ_sph_sample(const OccSph& w, V3 dir, float dds,
+                                               float radius_sq) {
+  bool no_sol;
+  float xmin, xmax;
+  sphere_roots(dds, 2.0f * dot(dir, w.L), w.c_q, &no_sol, &xmin, &xmax);
+  return !no_sol && ((xmin >= 0.0f && xmin * xmin * dds < radius_sq) ||
+                     (xmax >= 0.0f && xmax * xmax * dds < radius_sq));
 }
 
 // Where the shadow pass finds its occluder rows: the quad-merged table if

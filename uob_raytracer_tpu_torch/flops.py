@@ -166,12 +166,31 @@ def bounce_tile_fracs_from_residuals(res, bounces: int):
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 
 
-def fwd_work(cfg, scene, quads, res: Residuals, record: bool):
+# The shadow pass of the whole-table forward kernel (csrc/render_fwd.cu,
+# fwd_common.cuh): per occluder row and shading ray the row's invariants
+# (occ_row_invariants: the "casts a shadow" test, b, t_num, t_num^2, b x e2,
+# e1 x b), per row and sample ray still unoccluded the sample part
+# (occ_row_sample: three dot products and the accept test); per sphere the
+# same split (occ_sph_invariants: L and c_q; occ_sph_sample: the roots).
+# A scan that takes one sample at a time pays both parts per sample: 55
+# and 30 per test.
+OCC_ROW_INV, OCC_ROW_SAMPLE = 27, 28
+OCC_SPH_INV, OCC_SPH_SAMPLE = 9, 21
+
+
+def fwd_work(cfg, scene, quads, res: Residuals, record: bool,
+             per_sample: bool = False):
     """(bytes, operations) of one forward frame. Operations: per ray the
     primary scan; per executed bounce step a general nearest-hit scan; per
-    shading ray the occlusion scan, in full for every lit sample (the
-    record's lit count) and one row for an occluded one (its scan stops at
-    the first occluder)."""
+    shading ray the occlusion scan: the invariants of every row and sphere
+    (the record shows a lit sample, which the scan takes to the last row),
+    the sample part of every row for a lit sample (the record's lit count)
+    and of one row for an occluded one (its scan stops at the first
+    occluder). Shading rays whose samples are all occluded do not show in
+    the record (lit 0) and are not counted, so this is a lower bound.
+    ``per_sample``: the count of a scan that takes one sample at a time,
+    every sample paying the invariants too (the kernel's count before it
+    hoisted them; kept so that shares stay comparable)."""
     n_tri = scene.num_triangles
     n_sph = 0 if cfg.cpu_ref else scene.num_spheres
     n_rows = n_tri if quads is None else len(quads[0]) + len(quads[1])
@@ -180,10 +199,16 @@ def fwd_work(cfg, scene, quads, res: Residuals, record: bool):
     shading = int((res.lit_cnt > 0).sum())   # lower bound: lit 0 not seen
     lit = float(res.lit_cnt.sum())
     occluded = shading * cfg.shadow_samples - lit
+    row, sph = OCC_ROW_INV + OCC_ROW_SAMPLE, OCC_SPH_INV + OCC_SPH_SAMPLE
+    if per_sample:
+        shadow = lit * (row * n_rows + sph * n_sph) + occluded * row
+    else:
+        shadow = (shading * (OCC_ROW_INV * n_rows + OCC_SPH_INV * n_sph)
+                  + lit * (OCC_ROW_SAMPLE * n_rows + OCC_SPH_SAMPLE * n_sph)
+                  + occluded * OCC_ROW_SAMPLE)
     ops = (rays * (30 + 26 * n_tri + 40 * n_sph)
            + steps * (90 + 70 * n_tri + 45 * n_sph)
-           + shading * 60 + (lit + occluded) * 30
-           + lit * (55 * n_rows + 30 * n_sph) + occluded * 55)
+           + shading * 60 + (lit + occluded) * 30 + shadow)
     pix = cfg.width * cfg.height
     nbytes = (16 * pix + (rays * (8 + 4 * cfg.bounces) if record else 0)
               + 4 * (19 * n_tri + (13 * n_rows if quads is not None else 0)))

@@ -29,6 +29,7 @@ for a CUDA scene they launch the kernel or raise, and never fall back.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -134,11 +135,20 @@ def pack_shadow(scene: Scene, quads):
     return torch.cat(rows, dim=0).contiguous()
 
 
-def shared_bytes(n_tri: int, n_sph: int, n_shd: int) -> int:
-    """Shared memory one block of the kernel stages (must match the
-    launcher in csrc/render_fwd.cu)."""
+def pixels_per_block(aa_rays: int) -> int:
+    """Pixels one block of the whole-table forward kernel takes (must match
+    ``pixels_per_block`` in csrc/render_fwd.cu): 32 * 4 / gcd(A, 4), the
+    fewest whole warps of pixels whose A rays fill whole rounds of
+    ``THREADS`` threads, one thread per ray."""
+    return 32 * 4 // math.gcd(aa_rays, 4)
+
+
+def shared_bytes(n_tri: int, n_sph: int, n_shd: int, aa_rays: int = 1) -> int:
+    """Shared memory one block of the whole-table forward kernel uses (must
+    match the launcher in csrc/render_fwd.cu): the tables, the primary
+    hit's invariants and the colours of the block's rays."""
     return 4 * (n_tri * (TRI_COLS + PRIM_COLS) + n_sph * SPH_COLS + CAM_COLS
-                + n_shd * SHD_COLS)
+                + n_shd * SHD_COLS + pixels_per_block(aa_rays) * aa_rays * 3)
 
 
 def bwd_shared_bytes(n_obj: int) -> int:
@@ -350,6 +360,28 @@ def render_fused_res(scene: Scene, cfg: RenderConfig, row0=None,
     return _launch(scene, cfg, row0, rows, quads, True, _kernel)
 
 
+def blocks_per_sm(scene: Scene, cfg: RenderConfig, quads=None) -> int:
+    """How many blocks of the whole-table forward kernel one SM of the
+    current CUDA device holds when it renders ``scene`` at ``cfg`` (the
+    runtime's occupancy count at that launch's registers, shared memory and
+    threads): an instrument, beside ``flops.kernel_resources``."""
+    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
+    n_shd = 0 if quads is None else len(quads[0]) + len(quads[1])
+    n_quads = 0 if quads is None else len(quads[0])
+    ints, floats = launch_params(cfg, 0, cfg.height, scene.num_triangles,
+                                 n_sph, n_quads, n_shd)
+    fn = _build.load().render_fwd_blocks_per_sm
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_float),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ints, floats, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"render_fwd_blocks_per_sm: CUDA error {err}")
+    return out.value
+
+
 def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
             record: bool, pin=None):
     """One launch of the whole-table or the streamed forward kernel on the
@@ -371,7 +403,7 @@ def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
         shd = None if quads is None else pack_shadow(scene, quads)
     n_shd = 0 if shd is None else shd.shape[0]
     n_quads = 0 if quads is None else len(quads[0])
-    smem = shared_bytes(n_tri, n_sph, n_shd)
+    smem = shared_bytes(n_tri, n_sph, n_shd, cfg.aa_rays)
     if not streamed and smem > SMEM_BUDGET_BYTES:
         # only a pinned whole-table kernel gets here: use_streamed sends
         # such a scene to the streamed kernel

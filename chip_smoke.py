@@ -1058,6 +1058,7 @@ def main() -> None:
         cfg_r = dataclasses.replace(cfg_d, bounces=render_bwd.REG_BOUNCES)
         res_r = render_fwd.render_fused_res(sc, cfg_r)[2]
         d = {"rel": rel_d, "abs": abs_d, "hits": int(hits.sum()),
+             "cfg": cfg_d, "scene": sc,
              "past": past, "hits_reg": int((res_r.bounce_id >= 0).sum()),
              "dev": deep_device_ms(lambda: render_bwd.render_replay_bwd(
                  sc, cfg_d, res_d, g_d), kname),
@@ -1947,6 +1948,21 @@ def main() -> None:
                 "bound_by_measured_peak": row["bound_by_measured_peak"],
                 **more}
 
+    def k3b_more(deep, cfg, scene):
+        """K3b's instance: ptxas registers and spills, the blocks an SM
+        holds and the grid at this config."""
+        res = flops.kernel_resources(
+            f"render_bwd_streamed_kernel<{str(deep).lower()}>")
+        n_pix = cfg.width * cfg.height
+        ppb = render_bwd.pixels_per_block(cfg.aa_rays)
+        return {"registers": res["registers"],
+                "spill_stores": res["spill_stores"],
+                "spill_loads": res["spill_loads"],
+                "blocks_per_sm": render_bwd.streamed_blocks_per_sm(
+                    cfg, scene.num_triangles, scene.num_spheres),
+                "pixels_per_block": ppb,
+                "grid_blocks": render_bwd.launch_blocks(n_pix, ppb)}
+
     k1_res = flops.kernel_resources("render_fwd_kernel")
     k1_more = {"registers": k1_res["registers"],
                "spill_stores": k1_res["spill_stores"],
@@ -2030,9 +2046,10 @@ def main() -> None:
               f"{jax_bwd}:381", big_train_launches[3], k3b_abs, lg["bwd"],
               lg["plain_bwd"], lg["bwd_work"], lg["bwd_dev"],
               at="dense_8192 128x128 aa4 s3 b2, 5 train_steps",
-              max_rel_err=k3b_rel, train_step_ms=lg["step"]),
+              max_rel_err=k3b_rel, train_step_ms=lg["step"],
+              **k3b_more(False, cfg_big, big)),
         entry("segment_sum (K3b's triangle cotangents)",
-              "render_bwd_streamed.cu", f"{jax_bwd}:990",
+              "render_bwd_streamed.cu", f"{jax_bwd}:1003",
               big_train_launches[4], seg_abs, lg["segsum"], lg["index_add"],
               lg["segsum_work"], lg["segsum_dev"],
               library_ms=lg["index_add"],
@@ -2047,7 +2064,9 @@ def main() -> None:
                 ns_per_bounce_step_hit=d["dev"] * 1e6 / d["hits"],
                 register_instance_device_ms_16_bounces=d["dev_reg"],
                 register_instance_ns_per_hit=d["dev_reg"] * 1e6
-                / d["hits_reg"])
+                / d["hits_reg"],
+                **(k3b_more(True, d["cfg"], d["scene"]) if kn == "K3b"
+                   else {}))
           for kn, src_file, line, ci, name, size in (
               ("K2", "render_bwd.cu", 366, 2, "mirror box", 512),
               ("K3b", "render_bwd_streamed.cu", 381, 3,

@@ -1,8 +1,10 @@
 """Device times of the port's kernels on one NVIDIA GPU, old beside new.
 
     python3 chip_timing.py [--tag NAME] [--out FILE] [--npz FILE]
-    python3 chip_timing.py --split [k1|k2k5|all] [--tag NAME] [--out FILE]
+    python3 chip_timing.py --split [k1|k2k5|k3b|all] [--tag NAME] [--out FILE]
+    python3 chip_timing.py --k3b-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --compare A.npz B.npz
+    python3 chip_timing.py --sass A.so B.so
 
 The default pass times, on the scenes and configs of ``chip_smoke.py``
 (the JAX package's ``bench.py:dense_scene(8192)`` at 128x128, 2x2 AA, 3
@@ -28,13 +30,16 @@ full_1024; the mirror boxes past 16 bounces):
 - the segmented sum: its wrapper (CUDA events), and within one call each
   device kernel it launches beside the host's share, and ``index_add_`` on
   the same rows;
-- a dense_8192 ``train_step``.
+- a dense_8192 ``train_step``;
+- the backward's routing: K2 against K3b and its segmented sum, each
+  pinned by ``_kernel``, on the Cornell box at the five baseline configs.
 
 ``--npz`` saves K1's image, packed image and record (pid, lit, bid) on
-those Cornell frames, K5's bits on the frame's three occlusion batches and
-K2's gradients and replayed image at full_1024 and on the mirror box, so
-that two runs (parent and change) can be compared bit for bit with
-``--compare``, which needs no card.
+those Cornell frames, K5's bits on the frame's three occlusion batches,
+K2's gradients and replayed image at full_1024 and on the mirror box, and
+K3b's at dense_8192 and on the 600-triangle mirror box, so that two runs
+(parent and change) can be compared bit for bit with ``--compare``, which
+needs no card.
 
 ``--split`` measures what sets the kernels' gaps to their bounds instead.
 Its K1 part (``--split k1``), at the headline and at full_1024, as
@@ -49,13 +54,36 @@ and scatter shuffles (``flops.chain_share``, ``flops.scatter_work``) at
 full_1024; and on the three occlusion batches, each ray's first occluding
 row (``flops.first_occluder``), the lane-rows a thread per ray uses
 (``flops.occluded_lanes``) and K5's device time beside K4's on the same
-rays. ``--split`` alone runs both parts.
+rays. Its K3b part (``--split k3b``), for both instances of the streamed
+backward (dense_8192 128x128 aa4 s3 b2; the 600-triangle mirror box
+256x256 aa1 s2 b32): the kernel's device time, the same launch without
+its per-site stores, the wrapper's zeroing of the per-site rows as a
+device kernel of its own, every device kernel of one backward call, the
+ptxas registers and spills, the blocks an SM holds and the grid, the
+record's sites and hits, and the lane-steps of the bounce sweeps a warp of
+32 rays runs against the steps its rays need; for the deep instance also
+the register instance on the same scene at 16 bounces, and each one's ns
+per bounce-step hit. The time without the stores comes from a copy of the
+package under ``build/k3b_nostore/`` whose ``render_bwd_streamed.cu`` has
+the stores' guard replaced by ``false`` (``NOSTORE``), built there and
+timed by ``--k3b-ms`` in a process of its own; the package itself has no
+such instance. ``--split`` alone runs every part.
+
+``--k3b-ms`` times K3b alone (device ms of its kernel in one backward call)
+on the split's two configs and on the same two scenes at 512x512 (2,048
+blocks of one thread per AA ray, where the card holds several waves).
+
+``--sass`` compares two built kernel libraries (parent and change) kernel
+by kernel: each function's static SASS instruction count and opcode counts
+(``flops.parse_sass`` of ``cuobjdump -sass``), and whether they are equal;
+it needs the toolkit's ``cuobjdump`` but no card.
 
 It imports ``uob_raytracer_tpu_torch`` from the directory it sits in and
 uses only wrapper calls that the port has had since its deep backward
 instances and row bands (the K1 split's blocks per SM and waves need
-``render_fwd.blocks_per_sm`` and ``pixels_per_block`` as well, and read
-null in a checkout without them), so the same file copied into a checkout
+``render_fwd.blocks_per_sm`` and ``pixels_per_block`` as well, the K3b
+split's ``render_bwd.streamed_blocks_per_sm``, and read null in a checkout
+without them), so the same file copied into a checkout
 of an earlier commit times that commit's kernels: run parent, change,
 change, parent on one card, one after another, to compare them. Prints
 the card's name and power limit, then one JSON line; ``--out`` appends
@@ -67,6 +95,8 @@ import argparse
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -77,8 +107,8 @@ import torch
 import uob_raytracer_tpu_torch as rt
 from uob_raytracer_tpu_torch import (RenderConfig, ShadingModel,
                                      baseline_configs, flops)
-from uob_raytracer_tpu_torch.kernels import (bwd_twin, partial, render_bwd,
-                                             render_fwd)
+from uob_raytracer_tpu_torch.kernels import (_build, bwd_twin, partial,
+                                             render_bwd, render_fwd)
 from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads
 from uob_raytracer_tpu_torch.parallel import train_step
 
@@ -370,6 +400,169 @@ def split_pass(out: dict) -> None:
     out["k5_split"] = k5
 
 
+def k3b_cases():
+    """The two instances of K3b on their configs: (name, scene, config,
+    seed of the image cotangent)."""
+    return (("dense_8192", dense_scene(8192), CFG_BIG, 51),
+            ("mirror_600", mirror_box(dense_scene(600)), mirror_cfg(256), 71))
+
+
+def k3b_frames():
+    """The K3b cases and the same scenes at 512x512 (``--k3b-ms``)."""
+    cases = k3b_cases()
+    (_, dense, cfg, _), (_, mirror, _, _) = cases
+    return cases + (
+        ("dense_8192_512", dense, dataclasses.replace(cfg, width=512,
+                                                      height=512), 53),
+        ("mirror_600_512", mirror, mirror_cfg(512), 73))
+
+
+def k3b_ms() -> dict:
+    """K3b's device ms in one backward call on each of ``k3b_frames``."""
+    out = {}
+    for name, scene, cfg, seed in k3b_frames():
+        res = render_fwd.render_fused_res(scene, cfg)[2]
+        g = seeded((cfg.height, cfg.width, 3), seed)
+        out[name] = kernel_ms(device_kernels(
+            lambda: render_bwd.render_replay_bwd(scene, cfg, res, g), 5),
+            "render_bwd_streamed_kernel")
+    return out
+
+
+# The stores' guard in StreamedTables::scatter and what the no-store copy
+# puts in its place.
+NOSTORE = ("if (id >= 0 && id < n_tri) {", "if (false) {")
+
+
+def nostore_ms() -> dict | None:
+    """``k3b_ms`` of a copy of the package whose streamed kernel writes no
+    per-site rows (module docstring); None where the source has no single
+    stores' guard to cut."""
+    dst = os.path.join(ROOT, "build", "k3b_nostore")
+    shutil.rmtree(dst, ignore_errors=True)
+    pkg = os.path.join(dst, "uob_raytracer_tpu_torch")
+    shutil.copytree(os.path.join(ROOT, "uob_raytracer_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.abspath(__file__), dst)
+    src = os.path.join(pkg, "csrc", "render_bwd_streamed.cu")
+    with open(src) as f:
+        text = f.read()
+    if text.count(NOSTORE[0]) != 1:
+        return None
+    with open(src, "w") as f:
+        f.write(text.replace(*NOSTORE))
+    run = subprocess.run([sys.executable, "chip_timing.py", "--k3b-ms"],
+                         cwd=dst, stdout=subprocess.PIPE, text=True,
+                         check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])["k3b_ms"]
+
+
+def sweep_lane_steps(res, cfg, ppw: int = 32) -> dict:
+    """The bounce steps each ray's replay needs (the recorded hits) against
+    the lane-steps a warp of ``ppw`` adjacent pixels of one AA index runs
+    (its deepest ray's, on every lane)."""
+    hits = (res.bounce_id >= 0).sum(dim=0).reshape(cfg.aa_rays, -1)
+    n = hits.shape[1]
+    pad = -n % ppw
+    if pad:
+        hits = torch.cat([hits, hits.new_zeros((hits.shape[0], pad))], 1)
+    warps = hits.reshape(hits.shape[0], -1, ppw)
+    run = int(warps.max(dim=2).values.sum()) * ppw
+    need = int(hits.sum())
+    return {"steps_needed": need, "lane_steps_run": run,
+            "used": need / run if run else None}
+
+
+def k3b_split(out: dict) -> None:
+    """K3b's split on both instances (see the module docstring)."""
+    occupancy = getattr(render_bwd, "streamed_blocks_per_sm", None)
+    nostore = nostore_ms() or {}
+    rows = {"sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    for name, scene, cfg, seed in k3b_cases():
+        res = render_fwd.render_fused_res(scene, cfg)[2]
+        g = seeded((cfg.height, cfg.width, 3), seed)
+        deep = cfg.bounces > render_bwd.REG_BOUNCES
+        n = 5 if deep else 10
+        k = device_kernels(lambda: render_bwd.render_replay_bwd(
+            scene, cfg, res, g), n)
+        ids = render_bwd.site_ids(res)
+        n_tri = scene.num_triangles
+        # one thread per AA ray, or the parent's one per pixel
+        px = (render_fwd.pixels_per_block(cfg.aa_rays) if occupancy
+              else render_bwd.THREADS)
+        row = {"ms": kernel_ms(k, "render_bwd_streamed_kernel"),
+               "all_device_ms": sum(k.values()), "kernels_ms": k,
+               "nostore_ms": nostore.get(name),
+               "grid_blocks": -(-cfg.width * cfg.height // px),
+               "blocks_per_sm": occupancy(cfg, scene.num_triangles,
+                                          scene.num_spheres)
+               if occupancy else None,
+               "sites": int(ids.numel()),
+               "triangle_sites": int(((ids >= 0) & (ids < n_tri)).sum()),
+               "bounce_step_hits": int((res.bounce_id >= 0).sum()),
+               "hits_past_16": int((res.bounce_id[render_bwd.REG_BOUNCES:]
+                                    >= 0).sum()),
+               "sweeps": sweep_lane_steps(res, cfg)}
+        dlane = torch.empty((ids.numel(), render_bwd.GRAD_COLS),
+                            device="cuda")
+        row["dlane_bytes"] = dlane.numel() * 4
+        row["zero_ms"] = sum(device_kernels(dlane.zero_, n).values())
+        del dlane
+        row["resources"] = flops.kernel_resources(
+            f"render_bwd_streamed_kernel<{str(deep).lower()}>")
+        row["ns_per_hit"] = (row["ms"] * 1e6 / row["bounce_step_hits"]
+                             if row["bounce_step_hits"] else None)
+        if deep:
+            c16 = dataclasses.replace(cfg, bounces=render_bwd.REG_BOUNCES)
+            r16 = render_fwd.render_fused_res(scene, c16)[2]
+            hits16 = int((r16.bounce_id >= 0).sum())
+            ms16 = kernel_ms(device_kernels(
+                lambda: render_bwd.render_replay_bwd(scene, c16, r16, g), n),
+                "render_bwd_streamed_kernel")
+            row["register_16"] = {"ms": ms16, "bounce_step_hits": hits16,
+                                  "ns_per_hit": ms16 * 1e6 / hits16,
+                                  "sweeps": sweep_lane_steps(r16, c16)}
+        rows[name] = row
+    out["k3b_split"] = rows
+
+
+def bwd_routing(out: dict) -> None:
+    """K2 against K3b and its segmented sum, pinned by ``_kernel``, on the
+    Cornell box at the five baseline configs (device ms per call)."""
+    rows = {}
+    for name, cfg in baseline_configs().items():
+        scene = rt.cornell_box(
+            spheres=not cfg.cpu_ref,
+            shading=cfg.shading if cfg.cpu_ref else ShadingModel.DEVICE)
+        res = render_fwd.render_fused_res(scene, cfg, quads=None)[2]
+        g = seeded((cfg.height, cfg.width, 3), 81)
+        row = {}
+        for kern in ("whole", "streamed"):
+            k = device_kernels(lambda kk=kern: render_bwd.render_replay_bwd(
+                scene, cfg, res, g, _kernel=kk), 5)
+            if kern == "whole":
+                row["k2_ms"] = kernel_ms(k, *K2_NAMES)
+            else:
+                row["k3b_ms"] = kernel_ms(k, "render_bwd_streamed_kernel")
+                row["segment_sum_ms"] = kernel_ms(k, "segment_sum")
+                row["k3b_plus_sum_ms"] = row["k3b_ms"] + row["segment_sum_ms"]
+            row[f"{kern}_all_device_ms"] = sum(k.values())
+            row[f"{kern}_wrapper_ms"] = event_ms(
+                lambda kk=kern: render_bwd.render_replay_bwd(
+                    scene, cfg, res, g, _kernel=kk), 2, 5)
+        rows[name] = row
+    out["bwd_routing"] = rows
+
+
+def save_backward(saved: dict, key: str, scene, cfg, res, g) -> None:
+    """The gradients and the replayed image of one backward call."""
+    bar, img = render_bwd.render_replay_bwd(scene, cfg, res, g,
+                                            return_primal=True)
+    saved[f"{key}_img"] = img.cpu().numpy()
+    for f in dataclasses.fields(bar):
+        saved[f"{key}_grad_{f.name}"] = getattr(bar, f.name).cpu().numpy()
+
+
 def default_pass(out: dict, npz: str | None) -> None:
     """The device times of the kernels old beside new (module docstring)."""
     saved = {}
@@ -393,6 +586,7 @@ def default_pass(out: dict, npz: str | None) -> None:
     out["k3b_ms"] = kernel_ms(k, "render_bwd_streamed_kernel")
     out["k3b_segment_sum_ms"] = kernel_ms(k, "segment_sum")
     out["k3b_all_device_ms"] = sum(k.values())
+    save_backward(saved, "k3b_dense_8192", big, CFG_BIG, res_t, g_big)
 
     # the segmented sum on the sites of that record, split
     ids = render_bwd.site_ids(res_t)
@@ -441,11 +635,7 @@ def default_pass(out: dict, npz: str | None) -> None:
         mirror, cfg_m, res_m, g_m), K2_NAMES, n=5)
     for key, sc, c, r, gg in (("full_1024", cornell, cfg, res, g),
                               ("mirror", mirror, cfg_m, res_m, g_m)):
-        bar, img = render_bwd.render_replay_bwd(sc, c, r, gg,
-                                                return_primal=True)
-        saved[f"k2_{key}_img"] = img.cpu().numpy()
-        for f in dataclasses.fields(bar):
-            saved[f"k2_{key}_grad_{f.name}"] = getattr(bar, f.name).cpu().numpy()
+        save_backward(saved, f"k2_{key}", sc, c, r, gg)
     d600 = dense_scene(600)
     res6 = render_fwd.render_fused_res(d600, CFG_BIG, _kernel="whole")[2]
     g6 = seeded((128, 128, 3), 61)
@@ -457,6 +647,8 @@ def default_pass(out: dict, npz: str | None) -> None:
     g_m6 = seeded((256, 256, 3), 71)
     backward_times(out, "k3b_deep_mirror", lambda: render_bwd.render_replay_bwd(
         m600, cfg_m6, res_m6, g_m6), ("render_bwd_streamed_kernel",), n=5)
+    save_backward(saved, "k3b_mirror_600", m600, cfg_m6, res_m6, g_m6)
+    bwd_routing(out)
 
     twin = twin_full_1024(cornell, res)
     out["k7_full_1024_ms"] = kernel_ms(device_kernels(twin["run"]),
@@ -487,17 +679,57 @@ def compare(a: str, b: str) -> dict:
     return out
 
 
+def anonymous_free(name: str) -> str:
+    """A mangled function name with each anonymous namespace's identifier
+    (which carries a hash of the source's path) cut to its file's name, so
+    that two checkouts' builds name a kernel alike."""
+    out, i = [], 0
+    for m in re.finditer(r"(\d+)_GLOBAL__N__", name):
+        if m.start() < i:
+            continue
+        end = m.start(1) + len(m.group(1)) + int(m.group(1))
+        ident = name[m.end(1):end]
+        f = re.match(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_[0-9a-f]+$", ident)
+        out += [name[i:m.start()], f"<{f.group(1) if f else 'anon'}>"]
+        i = end
+    return "".join(out) + name[i:]
+
+
+def sass_compare(a: str, b: str) -> dict:
+    """Per kernel function of two built libraries: its SASS instruction
+    totals in each and whether its instruction and opcode counts are equal
+    (None where one library lacks it); and the functions that differ."""
+    def census(lib):
+        proc = subprocess.run([_build.tool("cuobjdump"), "-sass", lib],
+                              capture_output=True, text=True, check=True)
+        return {anonymous_free(name): flops.sass_counts(f["instrs"])
+                for name, f in flops.parse_sass(proc.stdout).items()}
+    ca, cb = census(a), census(b)
+    out = {}
+    for name in sorted(set(ca) | set(cb)):
+        x, y = ca.get(name), cb.get(name)
+        out[name] = {"total": [None if x is None else x["total"],
+                               None if y is None else y["total"]],
+                     "equal": None if x is None or y is None else x == y}
+    return {"kernels": out,
+            "differ": [k for k, v in out.items() if v["equal"] is not True]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default=os.path.basename(ROOT))
     ap.add_argument("--out", default=None)
     ap.add_argument("--npz", default=None)
     ap.add_argument("--split", nargs="?", const="all", default=None,
-                    choices=("k1", "k2k5", "all"))
+                    choices=("k1", "k2k5", "k3b", "all"))
+    ap.add_argument("--k3b-ms", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
+    ap.add_argument("--sass", nargs=2, metavar="LIB", default=None)
     args = ap.parse_args()
     if args.compare:
         out = {"compare": args.compare, **compare(*args.compare)}
+    elif args.sass:
+        out = {"sass": args.sass, **sass_compare(*args.sass)}
     else:
         if not torch.cuda.is_available():
             raise SystemExit("chip_timing: no CUDA device")
@@ -507,12 +739,17 @@ def main() -> None:
             check=True).stdout.strip().splitlines()[0]
         print(card, flush=True)
         out = {"tag": args.tag, "card": card, "source": ROOT,
-               "pass": f"split {args.split}" if args.split else "default"}
+               "pass": (f"split {args.split}" if args.split
+                        else "k3b" if args.k3b_ms else "default")}
+        if args.k3b_ms:
+            out["k3b_ms"] = k3b_ms()
         if args.split in ("k1", "all"):
             k1_split(out)
         if args.split in ("k2k5", "all"):
             split_pass(out)
-        if not args.split:
+        if args.split in ("k3b", "all"):
+            k3b_split(out)
+        if not (args.split or args.k3b_ms):
             default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:

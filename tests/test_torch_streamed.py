@@ -535,6 +535,63 @@ def test_streamed_backward_kernel_on_card(cuda_device, n_tri):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("aa", [1, 2, 4])
+@pytest.mark.parametrize("deep", [False, True])
+def test_streamed_backward_per_ray_on_card(cuda_device, monkeypatch, aa,
+                                           deep):
+    """The streamed backward with one thread per AA ray, A in {1, 4, 16}
+    (at 16 a block of 32 pixels holds 512 rays, four a thread), its
+    register instance (2 bounces) and its deep one (20, the mirror box), on
+    a ragged frame (37 x 11 pixels: the last block is partly empty): within
+    1e-4 of the plain version leaf by leaf and the replayed image within
+    1e-4 of the plain primal; within 1e-5 of the whole-table kernel on the
+    same record, the image bit for bit (each pixel's rays added in ray
+    order in both); two runs bit-equal; and every per-site row whose
+    recorded id is not a triangle (a miss, a sphere, a step the ray never
+    ran) zero."""
+    sc = scene_from_numpy(dense_leaves(600), cuda_device)
+    more = {}
+    if deep:
+        sc = mirror_box(sc)
+        more = {"focal_length": 4400.0}
+    cfg = trt.RenderConfig(width=37, height=11, aa_x=aa, aa_y=aa,
+                           shadow_samples=2, bounces=20 if deep else 2,
+                           **more)
+    _, _, res = tfwd.render_fused_res(sc, cfg)
+    if deep:
+        assert (res.bounce_id[tbwd.REG_BOUNCES:] >= 0).any()
+    g = torch.from_numpy(np.random.RandomState(aa + 2 * deep).standard_normal(
+        (11, 37, 3)).astype(np.float32)).to(cuda_device)
+    seen = []
+    real = tbwd.streamed_table_cotangents
+
+    def keep(partial, dlane, ids, *rest):
+        seen.append((dlane.clone(), ids.clone()))
+        return real(partial, dlane, ids, *rest)
+
+    monkeypatch.setattr(tbwd, "streamed_table_cotangents", keep)
+    before = tbwd.STREAMED_LAUNCHES
+    got, primal = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
+    again, primal_again = tbwd.render_replay_bwd(sc, cfg, res, g,
+                                                 return_primal=True)
+    torch.cuda.synchronize()
+    assert tbwd.STREAMED_LAUNCHES == before + 2
+    ref, ref_primal = tbwd.render_replay_bwd_plain(sc, cfg, res, g,
+                                                   return_primal=True)
+    assert _leafwise(ref, got) <= 1e-4
+    assert torch.allclose(primal, ref_primal, atol=1e-4)
+    assert all(torch.equal(getattr(got, k), getattr(again, k)) for k in LEAVES)
+    assert torch.equal(primal, primal_again)
+    whole, whole_primal = tbwd.render_replay_bwd(
+        sc, cfg, res, g, return_primal=True, _kernel="whole")
+    assert _leafwise(whole, got) <= 1e-5
+    assert torch.equal(primal, whole_primal)
+    dlane, ids = seen[0]
+    dead = (ids < 0) | (ids >= sc.num_triangles)
+    assert dead.any() and not dlane[dead].any()
+
+
+@pytest.mark.cuda
 def test_segment_sum_kernel_on_card(cuda_device):
     ids, rows, ref = _sites(20000, 700, 3, integers=True)
     ids_c = torch.from_numpy(ids).to(cuda_device)

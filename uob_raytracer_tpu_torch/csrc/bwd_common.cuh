@@ -3,12 +3,13 @@
 // (render_bwd_streamed.cu). Here are the declarations: the launch
 // parameters, an object's row and its cotangent, the hit reconstruction and
 // its hand-derived adjoint, the bounce step's geometry, and the warp's
-// scatter. What one pixel's rays do with them (the per-thread chain
-// storage, the forward sweep, the shading adjoint, the reverse sweep, the
-// adjoint of the primary hit and the ray generation) is bwd_body.cuh, which
-// both kernels include inside their __global__ function. The two kernels
-// differ only in where an object's row is read from and where a row's
-// cotangent goes. The rules that make the gradient the framework's are
+// scatter. What one ray does with them (the forward sweep, the shading
+// adjoint, the reverse sweep, the adjoint of the primary hit and the ray
+// generation) is bwd_ray.cuh, which the streamed kernel includes inside its
+// __global__ function, one thread per AA ray; the whole-table kernel
+// includes bwd_body.cuh, a pixel's rays in a loop around it. The two
+// kernels differ in their launch, in where an object's row is read from
+// and in where a row's cotangent goes. The rules that make the gradient the framework's are
 // listed at the top of render_bwd.cu. The warp's sums (warp_scatter,
 // warp_camera) stay a butterfly per column: a reduce-scatter (a lane keeps
 // half its columns at each level, 16 shuffles for an object's 16 columns

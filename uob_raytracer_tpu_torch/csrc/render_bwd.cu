@@ -89,8 +89,9 @@
 // that. PERF.md has the runs.
 //
 // The per-ray replay and its adjoint live in bwd_common.cuh and
-// bwd_body.cuh, shared with the streamed kernel (render_bwd_streamed.cu) for scenes whose accumulators do
-// not fit shared memory.
+// bwd_ray.cuh (which bwd_body.cuh loops over a pixel's rays), shared with
+// the streamed kernel (render_bwd_streamed.cu) for scenes whose
+// accumulators do not fit shared memory.
 //
 // Built with --fmad=false like the forward kernel, and with the replay's
 // forward arithmetic in the order of ops/replay.py, so that the recomputed

@@ -5,7 +5,7 @@
 // Replaces the streamed mode of the TPU kernel kernels/render_bwd.py:
 // _bwd_kernel(streamed=True) of the JAX package. It computes the same
 // cotangents as the whole-table kernel, per ray by the same code
-// (bwd_body.cuh). Two things differ:
+// (bwd_ray.cuh). Three things differ:
 //
 // - The gather. The TPU kernel finds a lane's row by scanning the whole
 //   streamed table at every site, because a TPU lane cannot index memory by
@@ -21,9 +21,10 @@
 //   triangle, so dead sites hold zeros. The few spheres and the camera row
 //   keep the whole-table design: warp-shuffle sums into per-warp
 //   accumulators in shared memory and one partial row per block,
-//   [n_sph*16 + 21], summed over blocks by the wrapper. Those sums are made
-//   in the order of the whole-table kernel, so on a scene both kernels can
-//   run the sphere and camera cotangents come out bit-equal.
+//   [n_sph*16 + 21], summed over blocks by the wrapper. A warp holds other
+//   rays than the whole-table kernel's warp, so on a scene both kernels can
+//   run those sums agree to float rounding (1e-5), not bit for bit.
+// - The launch, below.
 //
 // The per-site rows are then summed per triangle by the segmented sum,
 // below: the wrapper sorts the sites' triangle ids once (a stable sort, so
@@ -33,6 +34,31 @@
 // thousands of sites is not one warp's work). No float atomics anywhere:
 // two runs on the same inputs give bit-equal gradients, which index_add_ /
 // scatter_add_ on the card do not.
+//
+// The launch: one thread per AA ray, as the whole-table forward kernel
+// (render_fwd.cu). A block takes ppb consecutive pixels and all their
+// rays: ray a of the block's pixel l is item a * ppb + l, and thread t
+// takes items t, t + 128, ... ppb, a launch argument, is the forward's
+// pixels_per_block(A) (32 at 2x2 AA, 128 at one ray: 128 rays a block, one
+// a thread; past 4 rays a pixel a thread takes several). So a warp holds
+// one AA index of 32 adjacent pixels: its record reads (pid[a][p],
+// lit[a][p], bid[k][a][p]) coalesce, and its per-site
+// stores (row ((site * A + a) * n_pix + p)) fill 2 KB of dlane in one
+// piece. Each thread keeps its camera cotangents over its items and the
+// warp sums them once. A ray's replayed radiance goes to shared memory, and
+// after a barrier one thread per pixel adds the A of them in ray order and
+// divides by A, as bwd_body.cuh's loop over a pixel's rays does, so the
+// image is bit for bit that loop's. The per-site rows are the same rays'
+// rows either way; only the warp's sums of the sphere and camera
+// cotangents take another order. The deep instance's chain slot is the
+// thread's, reused by its items in turn.
+//
+// Occupancy, by measurement (PERF.md, §6). One thread per pixel left most
+// of the card idle: at dense_8192 (128x128, 2x2 AA) it was 128 blocks of 4
+// warps for 132 SMs; one thread per ray makes it 512. __launch_bounds__
+// holds the register instance to 3 blocks an SM and the deep instance to
+// 4: the deep instance's 191 registers left it 2, so its 512 blocks at
+// 256x256 ran in two waves.
 //
 // What bounds it on this card: the replay's FP32 work as in render_bwd.cu,
 // plus 64 B of stores per triangle site; the segmented sum is bound by the
@@ -90,20 +116,29 @@ struct StreamedTables {
   }
 };
 
+// Blocks an SM holds at the least, by instance (see "Occupancy" above).
+constexpr int kRegMinBlocks = 3;
+constexpr int kDeepMinBlocks = 4;
+
 // Deep: the register or the deep instance of the bounce chain, as the
-// whole-table kernel (render_bwd.cu).
+// whole-table kernel (render_bwd.cu). A block takes ppb pixels (a
+// multiple of 32 with ppb * A a multiple of kThreads): ray a of the
+// block's pixel l is item a * ppb + l, and thread t takes items t,
+// t + kThreads, ...
 template <bool Deep>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Deep ? kDeepMinBlocks : kRegMinBlocks)
     render_bwd_streamed_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                                const float* __restrict__ g_cam, const float* __restrict__ g_img,
                                const int* __restrict__ pid, const float* __restrict__ lit_in,
                                const int* __restrict__ bid, float* __restrict__ dlane,
                                float* __restrict__ partial, float* __restrict__ img,
-                               float* __restrict__ chain, Params P) {
+                               float* __restrict__ chain, Params P, int ppb) {
   extern __shared__ float smem[];
+  const int A = P.aa_x * P.aa_y;
   const int acc_cols = P.n_sph * kGradCols + kCamCols;
   float* cam = smem;
-  float* acc = cam + kCamCols;  // [kWarps][acc_cols]
+  float* acc = cam + kCamCols;           // [kWarps][acc_cols]
+  float* col = acc + kWarps * acc_cols;  // [A][3][ppb]: the rays' radiance
 
   for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) cam[i] = g_cam[i];
   for (int i = threadIdx.x; i < kWarps * acc_cols; i += blockDim.x) acc[i] = 0.0f;
@@ -115,29 +150,70 @@ __global__ void __launch_bounds__(kThreads)
   tb.sph = g_sph;
   tb.wacc = wacc;
   tb.n_pix = (size_t)P.rows * P.width;
-  // a thread past the ragged edge reads no id >= 0, so it never stores
-  tb.dlane = dlane + ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * kGradCols;
   tb.n_tri = P.n_tri;
-  tb.A = P.aa_x * P.aa_y;
+  tb.A = A;
   constexpr bool Chain = true;
   const size_t n_pix = tb.n_pix;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past the ragged edge stay: they carry no ray but take part in
-  // the warp's shuffles
-  const bool in_img = p < n_pix;
   const size_t chain_stride = (size_t)gridDim.x * blockDim.x;
+
+  const V3 r0 = load3(cam), r1 = load3(cam + 3), r2 = load3(cam + 6);
+  const V3 cam_pos = load3(cam + 9), light = load3(cam + 12);
+  const V3 light_rgb = load3(cam + 15), indirect = load3(cam + 18);
+  const float fA = (float)A, fS = (float)P.shadow_samples;
+  float dcam[kCamCols];
+#pragma unroll
+  for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
+  // the deep chain's slot is the thread's, reused by its items in turn
+  ChainSteps<Deep> saved;
+  ChainIds<Deep> saved_id;
+  deep_chain<Deep>(saved, saved_id, chain, (size_t)blockIdx.x * blockDim.x + threadIdx.x,
+                   chain_stride);
+
+  for (int item = threadIdx.x; item < ppb * A; item += kThreads) {
+    const int a = item / ppb, lp = item - a * ppb;
+    const size_t p = (size_t)blockIdx.x * ppb + lp;
+    // a lane past the ragged edge stays: it carries no ray (it reads no
+    // id >= 0, so it never stores) but takes part in the warp's shuffles
+    const bool in_img = p < n_pix;
+    const int py = in_img ? (int)(p / P.width) : 0;
+    const int px = in_img ? (int)(p - (size_t)py * P.width) : 0;
+    const float bx0 = (float)px * (float)P.aa_x - P.half_w;
+    const float by0 = (float)(P.row0 + py) * (float)P.aa_y - P.half_h;
+    V3 gpix = zero3();
+    if (in_img) gpix = load3(g_img + p * 3);
+    // cotangent of one ray's color: the AA mean is sum / A
+    const V3 dcolor = make(gpix.x / fA, gpix.y / fA, gpix.z / fA);
+    tb.dlane = dlane + p * kGradCols;
+    V3 img_acc = zero3();
 #define REPLAY_LOAD_ROW(id) tb.load(id)
 #define REPLAY_SCATTER(site, a, id, g) tb.scatter(site, a, id, g)
-#define REPLAY_FLUSH()
-#define REPLAY_WCAM (wacc + P.n_sph * kGradCols)
-#include "bwd_body.cuh"
+#include "bwd_ray.cuh"
 #undef REPLAY_LOAD_ROW
 #undef REPLAY_SCATTER
-#undef REPLAY_FLUSH
-#undef REPLAY_WCAM
+    col[(a * 3 + 0) * ppb + lp] = img_acc.x;
+    col[(a * 3 + 1) * ppb + lp] = img_acc.y;
+    col[(a * 3 + 2) * ppb + lp] = img_acc.z;
+  }
+
+  // --- camera cotangents: the warp's 21 sums ---
+  warp_camera(wacc + P.n_sph * kGradCols, dcam);
+  __syncthreads();
+
+  // --- the replayed radiance: each pixel's rays added in ray order, ((0 +
+  // c0) + c1) + ..., and divided by A, as one thread looping over them ---
+  for (int l = threadIdx.x; P.want_img && l < ppb; l += kThreads) {
+    const size_t p = (size_t)blockIdx.x * ppb + l;
+    if (p >= n_pix) break;
+    V3 s = zero3();
+    for (int a = 0; a < A; ++a)
+      s = add(s, make(col[(a * 3 + 0) * ppb + l], col[(a * 3 + 1) * ppb + l],
+                      col[(a * 3 + 2) * ppb + l]));
+    img[p * 3 + 0] = s.x / fA;
+    img[p * 3 + 1] = s.y / fA;
+    img[p * 3 + 2] = s.z / fA;
+  }
 
   // --- the block's partial row: its warps' accumulators added in order ---
-  __syncthreads();
   float* out = partial + (size_t)blockIdx.x * acc_cols;
   for (int i = threadIdx.x; i < acc_cols; i += blockDim.x) {
     float s = acc[i];
@@ -233,36 +309,66 @@ __global__ void __launch_bounds__(kThreads)
   if (g == 0) out[(size_t)t * 4 + q] = s;
 }
 
+// Shared memory of one block: the camera row, the warps' sphere and camera
+// accumulators and the radiance of the block's rays.
+size_t streamed_smem(const Params& P, int ppb) {
+  return sizeof(float) * (kCamCols + kWarps * ((size_t)P.n_sph * kGradCols + kCamCols) +
+                          (size_t)ppb * P.aa_x * P.aa_y * 3);
+}
+
+// Whether ppb is a block's pixel count the kernel takes for A rays a pixel.
+bool valid_ppb(int ppb, int A) { return ppb > 0 && ppb % 32 == 0 && (ppb * A) % kThreads == 0; }
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 }  // namespace
 
-// Launches one streamed backward pass on `stream`; ip, fp, g, pid, lit, bid
-// and img as render_bwd_launch (render_bwd.cu). dlane [(1 + bounces) * A *
-// rows * W, 16] must arrive zeroed; partial [ceil(rows*W / 128), n_sph*16 +
-// 21] is overwritten; chain as render_bwd_launch. Returns cudaGetLastError()
-// of the launch, or cudaErrorInvalidValue when a deep config comes without
-// its chain.
+// Launches one streamed backward pass on `stream`, ppb pixels a block (a
+// multiple of 32, ppb * A a multiple of 128: kernels/render_fwd.py:
+// pixels_per_block); ip, fp, g, pid, lit, bid and img as render_bwd_launch
+// (render_bwd.cu). dlane [(1 + bounces) * A * rows * W, 16] must arrive
+// zeroed; partial [blocks, n_sph*16 + 21] is overwritten, blocks =
+// ceil(rows*W / ppb); chain [kChainFloats * bounces * blocks * 128] when
+// bounces > 16, else null. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a ppb the kernel does not take or a deep config
+// without its chain.
 extern "C" int render_bwd_streamed_launch(const float* tri, const float* sph, const float* cam,
                                           const float* g, const int* pid, const float* lit,
                                           const int* bid, float* dlane, float* partial,
                                           float* img, float* chain, const int* ip,
-                                          const float* fp, void* stream) {
+                                          const float* fp, int ppb, void* stream) {
   const Params P = make_params(ip, fp);
   const bool deep = P.bounces > kRegBounces;
-  if (deep && chain == nullptr) return (int)cudaErrorInvalidValue;
+  if ((deep && chain == nullptr) || !valid_ppb(ppb, P.aa_x * P.aa_y))
+    return (int)cudaErrorInvalidValue;
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
-  const size_t smem =
-      sizeof(float) * (kCamCols + kWarps * ((size_t)P.n_sph * kGradCols + kCamCols));
+  const size_t smem = streamed_smem(P, ppb);
   const auto kernel = deep ? render_bwd_streamed_kernel<true> : render_bwd_streamed_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)((n_pix + ppb - 1) / ppb);
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid, dlane,
-                                                          partial, img, chain, P);
+                                                          partial, img, chain, P, ppb);
   return (int)cudaGetLastError();
+}
+
+// How many blocks of the streamed kernel's instance for these parameters
+// and ppb one SM holds (the runtime's occupancy count), into *blocks.
+extern "C" int render_bwd_streamed_blocks_per_sm(const int* ip, const float* fp, int ppb,
+                                                 int* blocks) {
+  const Params P = make_params(ip, fp);
+  if (!valid_ppb(ppb, P.aa_x * P.aa_y)) return (int)cudaErrorInvalidValue;
+  const size_t smem = streamed_smem(P, ppb);
+  const auto kernel = P.bounces > kRegBounces ? render_bwd_streamed_kernel<true>
+                                              : render_bwd_streamed_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
 }
 
 // Launches the segmented sum on `stream`, both passes: rows [n, 16]

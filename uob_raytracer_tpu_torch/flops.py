@@ -240,7 +240,9 @@ def bwd_work(cfg, scene, res: Residuals, streamed: bool = False,
     chains = int((res.bounce_id[0] >= 0).sum()) if cfg.bounces else 0
     pix = (cfg.width * cfg.height if pixels is None
            else int(pixels.reshape(-1).sum()))
-    blocks = -(-pix // render_bwd.THREADS)
+    blocks = render_bwd.launch_blocks(
+        pix, render_bwd.pixels_per_block(cfg.aa_rays) if streamed
+        else render_bwd.THREADS)
     nbytes = rays * 8 + 4 * (steps + chains) + 12 * pix
     if streamed:
         ids = render_bwd.site_ids(res)
@@ -759,7 +761,7 @@ def measure_fp32_peak(iters: int = 20, ks=()) -> dict:
 # ---------------------------------------------------------------------------
 
 # K2's dependency depth and slow operations (divides, square roots), hand
-# counted from csrc/bwd_body.cuh and bwd_common.cuh along a triangle hit
+# counted from csrc/bwd_ray.cuh and bwd_common.cuh along a triangle hit
 # (good to about +-30%). Per ray: ray generation with its normalisation
 # (9: dot, sqrt, divide), the primary hit_fwd (8: det3, reciprocal, u,
 # position), the shading adjoint (about 30 from the position: the light

@@ -63,7 +63,7 @@ from ..scene import Scene
 from . import _build
 from .render_fwd import (  # noqa: F401  (shared_bytes etc.: public names)
     CAM_COLS, GRAD_COLS, OBJ_COLS, SMEM_BUDGET_BYTES, SPH_COLS, THREADS,
-    TRI_COLS, _band, _check, pack_scene, pick_kernel)
+    TRI_COLS, _band, _check, pack_scene, pick_kernel, pixels_per_block)
 from .render_fwd import bwd_shared_bytes as shared_bytes
 
 # Kernel launches since import: the whole-table kernel, the streamed kernel,
@@ -180,13 +180,14 @@ _INTS, _FLOATS = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 
 def _declare(lib: ctypes.CDLL, streamed: bool):
     """The launchers: the streamed kernel's (tables, g, record, dlane, the
-    partials, the image, the deep chain, params); or the whole-table
-    kernels' as a dict: "chain" (tables, g, record, the partials, the
-    image, the deep chain, list, offsets, params) and "free" (tables, g,
-    pid, lit, the partials, the image, list, counts, params)."""
+    partials, the image, the deep chain, params, pixels a block); or the
+    whole-table kernels' as a dict: "chain" (tables, g, record, the
+    partials, the image, the deep chain, list, offsets, params) and "free"
+    (tables, g, pid, lit, the partials, the image, list, counts, params)."""
     if streamed:
         fn = lib.render_bwd_streamed_launch
-        fn.argtypes = [ctypes.c_void_p] * 11 + [_INTS, _FLOATS, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 11
+                       + [_INTS, _FLOATS, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         return fn
     chain, free = lib.render_bwd_launch, lib.render_bwd_free_launch
@@ -197,13 +198,41 @@ def _declare(lib: ctypes.CDLL, streamed: bool):
     return {"chain": chain, "free": free}
 
 
+def streamed_blocks_per_sm(cfg: RenderConfig, n_tri: int, n_sph: int) -> int:
+    """How many blocks of the streamed backward kernel one SM of the
+    current CUDA device holds at ``cfg`` (the runtime's occupancy count for
+    the instance and the block the config launches): an instrument, beside
+    ``flops.kernel_resources``."""
+    ints, floats = launch_params(cfg, 0, cfg.height, n_tri, n_sph, False)
+    ppb = pixels_per_block(cfg.aa_rays)
+    fn = _build.load().render_bwd_streamed_blocks_per_sm
+    fn.argtypes = [_INTS, _FLOATS, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ints, floats, ppb, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"render_bwd_streamed_blocks_per_sm: CUDA error "
+                           f"{err}")
+    return out.value
+
+
+def launch_blocks(n_pix: int, ppb: int) -> int:
+    """Blocks of one backward launch over n_pix pixels, ppb a block (each
+    has a partial row, and each of its THREADS threads a slot of the deep
+    chain)."""
+    return -(-n_pix // ppb)
+
+
 def band_bytes(n: int, W: int, A: int, B: int, cols: int,
                streamed: bool) -> dict:
     """{name: (bytes, limit)} of the buffers one launch over a band of n
     rows needs: the per-block partials (whole-table; each of the split's
     two launches has a buffer of its own) or the per-site rows (streamed),
-    and the deep chain when B > REG_BOUNCES."""
-    threads = -(-n * W // THREADS) * THREADS
+    and the deep chain when B > REG_BOUNCES: a slot per thread of the grid,
+    whose block takes ``pixels_per_block(A)`` pixels (streamed, one thread
+    per AA ray) or THREADS (whole-table, one thread per pixel)."""
+    threads = launch_blocks(
+        n * W, pixels_per_block(A) if streamed else THREADS) * THREADS
     out = ({"dlane": (4 * GRAD_COLS * (1 + B) * A * n * W, MAX_DLANE_BYTES)}
            if streamed else
            {"partials": (4 * (threads // THREADS) * cols, MAX_PARTIAL_BYTES)})
@@ -404,7 +433,10 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
 
     # one set of buffers, of the tallest band, reused band after band
     h = max((n for _, n in bands), default=0)
-    threads = -(-h * W // THREADS) * THREADS
+    # the streamed kernel takes one thread per AA ray, the whole-table one
+    # a thread per pixel
+    ppb = pixels_per_block(A) if streamed else THREADS
+    threads = launch_blocks(h * W, ppb) * THREADS
     partial = torch.empty((threads // THREADS, cols), dtype=torch.float32,
                           device=dev)
     dlane = (torch.empty(((1 + B) * A * h * W, GRAD_COLS),
@@ -430,7 +462,7 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
         else:
             g_b = g[o:o + n].contiguous()
             res_b = Residuals(*(t[..., o:o + n, :].contiguous() for t in res))
-        partial_b = partial[:-(-n * W // THREADS)]
+        partial_b = partial[:launch_blocks(n * W, ppb)]
         outs = [partial_b]
         if streamed:
             # the kernel writes only the sites that hit a triangle: the rest
@@ -449,7 +481,7 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
             if streamed:
                 err = launch(*tables_g, bid_ptr,
                              *(t.data_ptr() for t in outs), img_ptr,
-                             chain_ptr, ints, floats, stream)
+                             chain_ptr, ints, floats, ppb, stream)
             elif split:
                 blocks = partial_b.shape[0]
                 err = launch["free"](*tables_g, partial_b.data_ptr(), img_ptr,

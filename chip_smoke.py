@@ -10,6 +10,10 @@ phase raising on failure and none caught:
    the card (twelve 128x16 mode cases, the five baseline configs, the 64x64
    goldens), and its residual outputs against the plain decision record,
    with the shadow quads and, as the trainer launches it, without them;
+   then ``render()`` on the five baseline configs at 256x256 against the
+   port's NumPy oracle (``reference.render_oracle``) within PARITY.md's
+   budget (``parity_torch.py``'s statistics: % of pixels beyond 3e-4, the
+   worst pixel, % of packed words different);
 2. holds the whole-table path-replay backward kernel against its plain
    version (torch autograd through the replay) on the 128x16 mode cases;
 3. drives the port's main paths at the full_1024 configuration:
@@ -149,7 +153,11 @@ from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads  # noqa: E402
 from uob_raytracer_tpu_torch.ops.replay import Residuals  # noqa: E402
 from uob_raytracer_tpu_torch.parallel import (  # noqa: E402
     make_mesh, multihost, render_image_sharded, train_step)
+from uob_raytracer_tpu_torch.reference import pack_argb_np, render_oracle  # noqa: E402
 from uob_raytracer_tpu_torch.scene import Scene  # noqa: E402
+
+# the oracle-parity statistics and budget, beside this script
+import parity_torch as parity  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
@@ -706,6 +714,30 @@ def main() -> None:
                                f"golden {fname} packed")
         print(f"golden {fname}: image worst {w_img:.3g}, packed worst "
               f"{w_pk:.3g}", flush=True)
+
+    # --- 3b. the five baseline configs at 256x256 against the port's NumPy
+    # oracle, PARITY.md's budget (parity_torch.py records every case) ---
+    t_oracle = 0.0
+    for name, cfg in baseline_configs().items():
+        cfg = dataclasses.replace(cfg, width=256, height=256)
+        scene = scene_for(cfg)
+        out = rt.render(scene, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = render_oracle(scene, cfg)
+        t_oracle += time.perf_counter() - t1
+        case = {"pct_over_tol": parity.pct_over(out.image, ref),
+                "max_dev": parity.max_dev(out.image, ref),
+                "packed_mismatch_pct": parity.packed_mismatch_pct(
+                    out.packed, pack_argb_np(ref))}
+        bad = parity.breaches(case)
+        if bad:
+            raise AssertionError(f"oracle parity {name} 256x256: "
+                                 f"{'; '.join(bad)}")
+        print(f"oracle parity {name} 256x256: {case['pct_over_tol']:.4f}% "
+              f"beyond {TIGHT}, worst {case['max_dev']:.4g}, packed "
+              f"{case['packed_mismatch_pct']:.4f}% differ", flush=True)
+    print(f"oracle phase: the NumPy oracle took {t_oracle:.1f} s", flush=True)
 
     # --- 4. main path one: render() at full_1024 through the kernel ---
     scene = rt.cornell_box()

@@ -5,6 +5,7 @@ compute-sanitizer runner. The NaN-checked frames are held to the JAX
 package's jnp render through ``assert_images_match``."""
 import dataclasses
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -99,6 +100,21 @@ def test_nan_checks_flag_nan_only():
     assert "empty" not in mode.ops and mode.ops["fill_"] == 1
 
 
+def test_nan_checks_skip_views():
+    """A view computes nothing: a slice of memory a kernel has yet to fill
+    (the streamed backward's per-site rows, zeroed band by band) passes,
+    and so does zeroing it; an operation that reads the NaN raises."""
+    buf = torch.full((6, 4), float("nan"))    # made outside the mode
+    with debug.nan_checks() as mode:
+        band = buf[:4]
+        buf.view(-1)
+        band.zero_()
+        assert float(band.sum()) == 0.0
+        with pytest.raises(FloatingPointError, match="aten.add"):
+            buf + 1.0
+    assert "slice" not in mode.ops and "view" not in mode.ops
+
+
 # --------------------------------------------------------------------------
 # The launch list and the sanitizer runner
 # --------------------------------------------------------------------------
@@ -115,6 +131,29 @@ def test_launch_list_covers_every_counter():
     assert len(names) == 11 == len(debug.launch_counts())
     counts = debug.launch_all("cpu", size=8)
     assert counts == {k: 0 for k in debug.launch_counts()}
+
+
+def test_main_nan_check_cpu(capsys):
+    """``python -m uob_raytracer_tpu_torch.debug --nan-check --device cpu``:
+    the whole launch list (plain versions) under the NaN checks finds no
+    NaN and reports how many outputs it looked at."""
+    debug.main(["--nan-check", "--device", "cpu", "--size", "16"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu" and out["size"] == 16
+    assert out["nan_checked_outputs"] > 1000
+    assert out["launches"] == {k: 0 for k in debug.launch_counts()}
+
+
+def test_main_nan_check_exits_on_nan(monkeypatch):
+    """A NaN anywhere in the launch list ends the run with a non-zero
+    exit naming the operation."""
+    def poisoned(device, size):
+        torch.log(torch.tensor([-1.0], device=device))
+        return debug.launch_counts()
+    monkeypatch.setattr(debug, "launch_all", poisoned)
+    with pytest.raises(SystemExit, match="NaN check failed: NaN in the "
+                                         "output of aten.log"):
+        debug.main(["--nan-check", "--device", "cpu"])
 
 
 REPORT_CLEAN = """========= COMPUTE-SANITIZER
@@ -189,6 +228,16 @@ def test_nan_checks_see_the_backward_on_card(cuda_device, backend):
 def test_launch_all_on_card(cuda_device):
     counts = debug.launch_all(cuda_device)
     assert all(n >= 1 for n in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_main_nan_check_on_card(cuda_device, capsys):
+    """``--nan-check`` on the card: every kernel launched under the NaN
+    checks, none of the operations around them holds a NaN."""
+    debug.main(["--nan-check", "--size", "32"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["nan_checked_outputs"] > 0
+    assert all(n >= 1 for n in out["launches"].values()), out
 
 
 @pytest.mark.cuda

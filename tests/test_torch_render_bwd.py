@@ -335,10 +335,11 @@ def test_cli_without_device_cpu_does_not_render_on_cpu(tmp_path, capsys):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and neither chip_smoke.py nor chip_timing.py,
-    imports jax or the JAX package."""
+    """No module of the port, and neither chip_smoke.py, chip_timing.py
+    nor parity_torch.py, imports jax or the JAX package."""
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "chip_timing.py")]
+             os.path.join(ROOT, "chip_timing.py"),
+             os.path.join(ROOT, "parity_torch.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "uob_raytracer_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 15

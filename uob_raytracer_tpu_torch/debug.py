@@ -13,11 +13,18 @@ compiled into the graph) and the ``jax_debug_nans`` mode
   output holds a NaN. Infinities pass: a miss is ``t = inf`` by design
   (``ops/intersect.py``), and checkify's float checks do not report them
   either. The outputs of the allocating operations (``empty`` and its
-  kin) are not values and are not looked at. Each checked output costs a
+  kin) are not values and are not looked at, nor are views (a slice, a
+  reshape): they compute nothing, their values were looked at where they
+  were made, and a slice of an allocation that a kernel has yet to fill
+  (the streamed backward's per-site rows, zeroed band by band) holds
+  whatever the memory held. Each checked output costs a
   reduction and, on the card, a synchronisation: a debugging tool, not a
   mode to time.
 - ``launch_all()``: every CUDA kernel of the library launched once at a
-  small size (``python -m uob_raytracer_tpu_torch.debug --launch-all``).
+  small size (``python -m uob_raytracer_tpu_torch.debug --launch-all``;
+  ``--nan-check`` runs it under ``nan_checks()`` and exits non-zero at the
+  first NaN, on the card or, with ``--device cpu``, through the plain
+  versions).
   The port's kernels share memory between threads (the tiles of
   ``csrc/render_fwd.cu``, ``render_bwd.cu``, ``partial.cu``,
   ``twin_body.cuh``) and leave blocks early through ``__syncthreads_or``,
@@ -31,6 +38,7 @@ compiled into the graph) and the ``jax_debug_nans`` mode
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -61,7 +69,7 @@ class NaNChecks(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         name = func.overloadpacket.__name__
-        if name in _ALLOCATORS:
+        if name in _ALLOCATORS or func.is_view:
             return out
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor) and t.is_floating_point():
@@ -300,14 +308,29 @@ def main(argv=None) -> None:
     p.add_argument("--launch-all", action="store_true",
                    help="launch every kernel of the library once at 64x64 "
                         "(the program a sanitizer runs)")
+    p.add_argument("--nan-check", action="store_true",
+                   help="run the launch list under nan_checks() and exit "
+                        "non-zero at the first NaN")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cpu runs the launch list's plain versions")
+    p.add_argument("--size", type=int, default=64,
+                   help="the launch list's frame size (default 64)")
     args = p.parse_args(argv)
-    if not args.launch_all:
+    if not (args.launch_all or args.nan_check):
         p.print_help()
         return
-    counts = launch_all("cuda")
-    print(json.dumps({"launches": counts}), flush=True)
+    mode = nan_checks() if args.nan_check else contextlib.nullcontext()
+    try:
+        with mode:
+            counts = launch_all(args.device, size=args.size)
+    except FloatingPointError as e:
+        raise SystemExit(f"NaN check failed: {e}") from e
+    out = {"device": args.device, "size": args.size, "launches": counts}
+    if args.nan_check:
+        out["nan_checked_outputs"] = mode.checked
+    print(json.dumps(out), flush=True)
     missing = [k for k, n in counts.items() if n < 1]
-    if missing:
+    if args.device == "cuda" and missing:
         raise SystemExit(f"no launch of {missing}")
 
 

@@ -4,7 +4,8 @@
 source, all started together, and links the objects into one shared
 library with a plain ``extern "C"`` interface, which ``ctypes`` loads; no
 PyTorch headers are involved, so the build takes seconds. The library goes
-to ``build/torch_kernels/`` at the root of the checkout, under a name that
+to ``torch_kernels/`` under ``build_root()`` (``build/`` at the root of a
+checkout, a cache directory for an installed copy), under a name that
 carries a hash of the sources and flags, so an edit rebuilds it; beside it
 the ``.log`` holds each source's command and ptxas report, in source order.
 A failed build raises; there is no fallback.
@@ -22,7 +23,6 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # --fmad=false: no FMA contraction, so the kernels can be held tightly to
 # their plain torch versions (see the note in csrc/render_fwd.cu). Never
@@ -33,6 +33,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def build_root(pkg: str = _PKG) -> str:
+    """Where the package's built libraries go. A checkout (a package whose
+    parent directory holds ``pyproject.toml``) keeps them in ``build/`` at
+    its root; an installed copy, whose directory may be read-only, in
+    ``$XDG_CACHE_HOME/uob_raytracer_tpu_torch`` (``~/.cache/...`` where that
+    variable is unset), never inside site-packages."""
+    parent = os.path.dirname(pkg)
+    if os.path.exists(os.path.join(parent, "pyproject.toml")):
+        return os.path.join(parent, "build")
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(cache, os.path.basename(pkg))
 
 
 def _sources() -> list[str]:
@@ -47,7 +61,8 @@ def library_path() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libuob_rt_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_root(), "torch_kernels",
+                        f"libuob_rt_kernels_{h.hexdigest()[:16]}.so")
 
 
 def tool(name: str) -> str:

@@ -1440,6 +1440,44 @@ def main() -> None:
           f"{k2p['streamed_bound'][0]:.4f} ms by {k2p['streamed_bound'][1]}; "
           f"plain {k2p['plain']:.2f} ms", flush=True)
 
+    # K2' on a frame the routing sends to it: 256 triangles (within
+    # STREAM_ABOVE_TRIANGLES: whole-table, 258 objects) at the same config,
+    # one launch of the chain kernel over every pixel
+    d256 = dense_scene(256)
+    if render_fwd.use_streamed(d256.num_triangles, d256.num_spheres):
+        raise AssertionError("a 256-triangle scene must route to the "
+                             "whole-table kernels")
+    res256 = render_fwd.render_fused_res(d256, cfg_big)[2]
+    k2p256_rel, k2p256_abs = check_backward(
+        d256, cfg_big, res256, seed=62, what="128x128 256 triangles (K2')")
+    g256 = seeded_cotangent((128, 128, 3), 62)
+
+    def bwd256():
+        return render_bwd.render_replay_bwd(d256, cfg_big, res256, g256)
+
+    reset_counts()
+    bwd256()
+    torch.cuda.synchronize()
+    if counts()[2] != 1 or render_bwd.FREE_LAUNCHES:
+        raise AssertionError(f"K2' at 256 triangles: launch counts "
+                             f"{counts()}, {render_bwd.FREE_LAUNCHES} "
+                             f"chain-free (one chain launch expected)")
+    k2p256 = {
+        "ms": median_ms(bwd256, 2, 5),
+        "dev": kernel_device_ms(bwd256, "render_bwd_kernel"),
+        "work": bwd_work(cfg_big, d256, res256),
+        "plain": median_ms(lambda: render_bwd.render_replay_bwd_plain(
+            d256, cfg_big, res256, g256), 1, 3),
+        "blocks_per_sm": render_bwd.chain_blocks_per_sm(
+            cfg_big, d256.num_triangles, d256.num_spheres),
+    }
+    k2p256["bound"] = bound(*k2p256["work"])
+    print(f"time dense_256 128x128 aa4 s3 b2 backward (K2') [{card}]: "
+          f"wrapper {k2p256['ms']:.4f} ms, device {k2p256['dev']:.4f} ms, "
+          f"bound {k2p256['bound'][0]:.4f} ms by {k2p256['bound'][1]}, "
+          f"{k2p256['blocks_per_sm']} blocks an SM; plain "
+          f"{k2p256['plain']:.2f} ms", flush=True)
+
     # --- 10. the sharded path: the partial-scan kernels (nearest hit,
     # occlusion), the frame through them on one process, and two ranks
     # sharing the card ---
@@ -1954,6 +1992,7 @@ def main() -> None:
     chain_pix = flops.chain_rays(sc_full, cfg_full, res_full).reshape(
         cfg_full.aa_rays, -1).any(dim=0)
     free_work = bwd_work(cfg_full, sc_full, res_full, pixels=~chain_pix)
+    chain_work = bwd_work(cfg_full, sc_full, res_full, pixels=chain_pix)
     share_full = flops.chain_share(sc_full, cfg_full, res_full)
     scatter_full = {s: flops.scatter_work(sc_full, cfg_full, res_full, s)
                     for s in ("pr6", "pr7")}
@@ -2056,13 +2095,30 @@ def main() -> None:
               "bounces; ms, plain_ms and max_abs_err are the whole "
               "backward's (one wrapper call launches both)",
               pixels=1.0 - share_full["pixels"]),
+        entry("K2c render_bwd chain launch", "render_bwd.cu",
+              f"{jax_bwd}:366", train_launches[1], bwd_abs, full["bwd"],
+              full["plain_bwd"], chain_work, full["bwd_chain_dev"],
+              at="full_1024, 5 train_steps: the pixels with a bounce chain "
+              "(the chain-free launch's list), one thread per AA ray; ms, "
+              "plain_ms and max_abs_err are the whole backward's (one "
+              "wrapper call launches both)", pixels=share_full["pixels"],
+              resources=k2_res, blocks_per_sm=render_bwd.chain_blocks_per_sm(
+                  cfg_full, sc_full.num_triangles, sc_full.num_spheres)),
         entry("K2' render_bwd past 32 objects", "render_bwd.cu",
-              f"{jax_bwd}:126", train_launches[1], k2p_abs, k2p["ms"],
-              k2p["plain"], k2p["work"], k2p["dev"],
-              at="the same kernel and count as K2; timed at 600 triangles "
-              "128x128 aa4 s3 b2", max_rel_err=k2p_rel,
-              streamed_device_ms_same_record=k2p["streamed_dev"],
-              streamed_segment_sum_device_ms=k2p["streamed_segsum_dev"]),
+              f"{jax_bwd}:126", train_launches[1], k2p256_abs, k2p256["ms"],
+              k2p256["plain"], k2p256["work"], k2p256["dev"],
+              at="the same kernel and count as K2; timed on dense_256 "
+              "128x128 aa4 s3 b2 (258 objects, whole-table by the "
+              "routing), one launch over every pixel",
+              max_rel_err=k2p256_rel, blocks_per_sm=k2p256["blocks_per_sm"],
+              pinned_600={"at": "600 triangles, the whole-table kernel "
+                          "pinned (the routing sends them to K3b)",
+                          "ms": k2p["ms"], "device_ms": k2p["dev"],
+                          "bound_ms": k2p["bound"][0],
+                          "max_abs_err": k2p_abs, "max_rel_err": k2p_rel,
+                          "streamed_device_ms": k2p["streamed_dev"],
+                          "streamed_segment_sum_device_ms":
+                          k2p["streamed_segsum_dev"]}),
         entry("K3f render_fwd_streamed", "render_fwd_streamed.cu",
               f"{jax_fwd}:263", k3f_launches, worst_big, lg["fwd"],
               lg["plain"], lg["fwd_work"], lg["fwd_dev"],

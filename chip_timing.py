@@ -1,8 +1,9 @@
 """Device times of the port's kernels on one NVIDIA GPU, old beside new.
 
     python3 chip_timing.py [--tag NAME] [--out FILE] [--npz FILE]
-    python3 chip_timing.py --split [k1|k2k5|k3b|all] [--tag NAME] [--out FILE]
+    python3 chip_timing.py --split [k1|k2k5|k3b|k2c|all] [--tag NAME] [--out FILE]
     python3 chip_timing.py --k3b-ms [--tag NAME] [--out FILE]
+    python3 chip_timing.py --k2c-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --compare A.npz B.npz
     python3 chip_timing.py --sass A.so B.so
 
@@ -67,8 +68,30 @@ per bounce-step hit. The time without the stores comes from a copy of the
 package under ``build/k3b_nostore/`` whose ``render_bwd_streamed.cu`` has
 the stores' guard replaced by ``false`` (``NOSTORE``), built there and
 timed by ``--k3b-ms`` in a process of its own; the package itself has no
-such instance. ``--split`` alone runs every part.
+such instance. Its K2 chain-kernel part (``--split k2c``), on each frame
+the routing sends to ``render_bwd_kernel<Deep>`` (``k2c_frames``:
+mirror_512 and glass_fresnel_512, one launch over every pixel;
+full_1024 and the headline, the chain launch over the chain-free
+launch's list; dense_256 at 128x128 aa4 s3 b2, past 32 objects; the
+mirror box at 512x512 b32, the deep instance): the chain kernel's device
+time (and the chain-free kernel's where the frame is split), the same
+launch with the chain's stores and loads cut (``K2C_NOSTORE``), with the
+register instance's step read at the top of the step as the deep
+instance reads its (``K2C_EAGER``), with the deep instance reading step
+k - 1 while step k's adjoint runs (``K2C_PREFETCH``), and with the camera
+row loaded once a thread (``K2C_CAMERA_ONCE``), each from a patched copy
+under ``build/k2c_<name>/`` timed by ``--k2c-ms`` in a process of its own
+(a patch whose text an older checkout lacks reads null); on the frames
+of up to 32 objects, the chain and
+chain-free kernels with the split taken the other way (``SPLIT_RAYS``
+moved past or below the frame), for the crossover; the ptxas registers,
+stack and spills, the blocks an SM holds (the runtime's count, or the
+occupancy rule in a checkout without the query) and the waves of the
+grid, the listed pixels, the rays a thread replays, and the lane-steps of
+the reverse sweeps against the steps the rays need. ``--split`` alone runs
+every part.
 
+``--k2c-ms`` times K2's chain kernel alone on the split's frames.
 ``--k3b-ms`` times K3b alone (device ms of its kernel in one backward call)
 on the split's two configs and on the same two scenes at 512x512 (2,048
 blocks of one thread per AA ray, where the card holds several waves).
@@ -429,39 +452,20 @@ def k3b_ms() -> dict:
     return out
 
 
-# The stores' guard in StreamedTables::scatter and what the no-store copy
-# puts in its place.
+# The stores' guard in StreamedTables::scatter and what K3b's no-store copy
+# (``patched_ms``) puts in its place.
 NOSTORE = ("if (id >= 0 && id < n_tri) {", "if (false) {")
 
 
-def nostore_ms() -> dict | None:
-    """``k3b_ms`` of a copy of the package whose streamed kernel writes no
-    per-site rows (module docstring); None where the source has no single
-    stores' guard to cut."""
-    dst = os.path.join(ROOT, "build", "k3b_nostore")
-    shutil.rmtree(dst, ignore_errors=True)
-    pkg = os.path.join(dst, "uob_raytracer_tpu_torch")
-    shutil.copytree(os.path.join(ROOT, "uob_raytracer_tpu_torch"), pkg,
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(os.path.abspath(__file__), dst)
-    src = os.path.join(pkg, "csrc", "render_bwd_streamed.cu")
-    with open(src) as f:
-        text = f.read()
-    if text.count(NOSTORE[0]) != 1:
-        return None
-    with open(src, "w") as f:
-        f.write(text.replace(*NOSTORE))
-    run = subprocess.run([sys.executable, "chip_timing.py", "--k3b-ms"],
-                         cwd=dst, stdout=subprocess.PIPE, text=True,
-                         check=True)
-    return json.loads(run.stdout.strip().splitlines()[-1])["k3b_ms"]
-
-
-def sweep_lane_steps(res, cfg, ppw: int = 32) -> dict:
+def sweep_lane_steps(res, cfg, ppw: int = 32, pixels=None) -> dict:
     """The bounce steps each ray's replay needs (the recorded hits) against
     the lane-steps a warp of ``ppw`` adjacent pixels of one AA index runs
-    (its deepest ray's, on every lane)."""
+    (its deepest ray's, on every lane); with ``pixels`` (bool [rows * W])
+    the warps of those pixels alone, in order (K2's chain launch over its
+    list)."""
     hits = (res.bounce_id >= 0).sum(dim=0).reshape(cfg.aa_rays, -1)
+    if pixels is not None:
+        hits = hits[:, pixels.reshape(-1).to(hits.device)]
     n = hits.shape[1]
     pad = -n % ppw
     if pad:
@@ -476,7 +480,8 @@ def sweep_lane_steps(res, cfg, ppw: int = 32) -> dict:
 def k3b_split(out: dict) -> None:
     """K3b's split on both instances (see the module docstring)."""
     occupancy = getattr(render_bwd, "streamed_blocks_per_sm", None)
-    nostore = nostore_ms() or {}
+    nostore = patched_ms("k3b_nostore", {"render_bwd_streamed.cu": (NOSTORE,)},
+                         False, "--k3b-ms") or {}
     rows = {"sms": torch.cuda.get_device_properties(0).multi_processor_count}
     for name, scene, cfg, seed in k3b_cases():
         res = render_fwd.render_fused_res(scene, cfg)[2]
@@ -524,6 +529,231 @@ def k3b_split(out: dict) -> None:
                                   "sweeps": sweep_lane_steps(r16, c16)}
         rows[name] = row
     out["k3b_split"] = rows
+
+
+def k2c_frames():
+    """The frames the routing sends to K2's chain kernel
+    (``render_bwd_kernel<Deep>``): (name, scene, config, seed of the image
+    cotangent). One launch over every pixel, one ray a pixel: mirror_512
+    and glass_fresnel_512; the chain launch over the chain-free launch's
+    list: full_1024 and the headline; past 32 objects, whole-table (256
+    triangles, within STREAM_ABOVE_TRIANGLES): dense_256 at 128x128 aa4 s3
+    b2; the deep instance, one launch below SPLIT_RAYS: the mirror box at
+    512x512 b32."""
+    cfgs = baseline_configs()
+    cornell = rt.cornell_box()
+    return (("mirror_512", cornell, cfgs["mirror_512"], 81),
+            ("glass_fresnel_512", cornell, cfgs["glass_fresnel_512"], 82),
+            ("full_1024", cornell, RenderConfig(), 11),
+            ("headline_512", cornell, HEADLINE, 12),
+            ("dense_256", dense_scene(256), CFG_BIG, 61),
+            ("mirror_box_512", mirror_box(cornell), mirror_cfg(512), 71))
+
+
+def k2c_ms(other_route: bool = False) -> dict:
+    """The chain kernel's (and, where the frame is split, the chain-free
+    kernel's) device ms in one backward call on each of ``k2c_frames``;
+    with ``other_route``, on the frames of up to 32 objects that bounce
+    also both kernels' ms with the split the other way (``SPLIT_RAYS`` set
+    to 0 or past the frame), for the crossover."""
+    out = {}
+    for name, scene, cfg, seed in k2c_frames():
+        res = render_fwd.render_fused_res(scene, cfg, quads=None)[2]
+        g = seeded((cfg.height, cfg.width, 3), seed)
+        n = 5 if cfg.bounces > render_bwd.REG_BOUNCES else 10
+
+        def times():
+            k = device_kernels(lambda: render_bwd.render_replay_bwd(
+                scene, cfg, res, g), n)
+            return {"ms": kernel_ms(k, "render_bwd_kernel"),
+                    "free_ms": sum(v for kk, v in k.items()
+                                   if "render_bwd_free_kernel" in kk),
+                    "all_device_ms": sum(k.values())}
+        out[name] = times()
+        n_obj = scene.num_triangles + scene.num_spheres
+        if (other_route and n_obj <= render_bwd.SPLIT_OBJECTS
+                and not cfg.bounces > render_bwd.REG_BOUNCES):
+            split = render_bwd.splits(cfg, cfg.height, n_obj)
+            keep = render_bwd.SPLIT_RAYS
+            render_bwd.SPLIT_RAYS = 1 << 62 if split else 0
+            try:
+                out[name]["other_route"] = {"split": not split, **times()}
+            finally:
+                render_bwd.SPLIT_RAYS = keep
+    return out
+
+
+# The chain's stores and loads cut (K2C_NOSTORE): every index of the chain
+# storage in bwd_ray.cuh made 0, so the register instance keeps one step in
+# registers, and the deep instance's storage made the same per-thread
+# array (its buffer never touched). The arithmetic runs on step 0's values
+# at every step: a time, not a result.
+K2C_NOSTORE = {
+    "bwd_common.cuh": (
+        ("using ChainSteps = std::conditional_t<Deep, DeepSteps, "
+         "float[kRegBounces][kStepFloats]>;",
+         "using ChainSteps = float[kRegBounces][kStepFloats];"),
+        ("using ChainIds = std::conditional_t<Deep, DeepIds, int[kRegBounces]>;",
+         "using ChainIds = int[kRegBounces];"),
+        ("    saved = DeepSteps{chain + p, stride};\n", ""),
+        ("    saved_id = DeepIds{reinterpret_cast<int*>(chain + kStepFloats * "
+         "stride) + p, stride};\n", "")),
+}
+# The deep instance reading step k - 1 of its chain while step k's adjoint
+# runs, in place of reading step k at the top of step k.
+K2C_PREFETCH = {
+    "bwd_ray.cuh": (
+        ("      for (int k = k_max - 1; k >= 0; --k) {\n",
+         "      float nxt[kStepFloats];\n      int nxt_id = -1;\n"
+         "      if constexpr (Deep) {\n        if (n_exec > 0) {\n"
+         "          const auto s_n = saved[n_exec - 1];\n"
+         "          for (int j = 0; j < kStepFloats; ++j) nxt[j] = s_n[j];\n"
+         "          nxt_id = saved_id[n_exec - 1];\n        }\n      }\n"
+         "      for (int k = k_max - 1; k >= 0; --k) {\n"),
+        ("          if constexpr (Deep) {\n            const auto s_k = saved[k];\n"
+         "#pragma unroll\n"
+         "            for (int j = 0; j < kStepFloats; ++j) sv_deep[j] = s_k[j];\n"
+         "            sv = sv_deep;\n          } else {\n            sv = saved[k];\n"
+         "          }\n          const int sid_k = saved_id[k];\n",
+         "          int sid_k;\n          if constexpr (Deep) {\n"
+         "            for (int j = 0; j < kStepFloats; ++j) sv_deep[j] = nxt[j];\n"
+         "            sv = sv_deep;\n            sid_k = nxt_id;\n"
+         "            if (k > 0) {\n              const auto s_k = saved[k - 1];\n"
+         "              for (int j = 0; j < kStepFloats; ++j) nxt[j] = s_k[j];\n"
+         "              nxt_id = saved_id[k - 1];\n            }\n"
+         "          } else {\n            sv = saved[k];\n            sid_k = saved_id[k];\n"
+         "          }\n")),
+}
+# The chain kernel loading the camera row once a thread, before its walk,
+# in place of once a ray.
+K2C_CAMERA_ONCE = {
+    "render_bwd.cu": (
+        ("  const float fA = (float)A;\n  float dcam[kCamCols];\n",
+         "  const V3 r0 = load3(cam), r1 = load3(cam + 3), r2 = load3(cam + 6);\n"
+         "  const V3 cam_pos = load3(cam + 9), light = load3(cam + 12);\n"
+         "  const V3 light_rgb = load3(cam + 15), indirect = load3(cam + 18);\n"
+         "  const float fA = (float)A, fS = (float)P.shadow_samples;\n"
+         "  float dcam[kCamCols];\n"),
+        ("      const V3 r0 = load3(cam), r1 = load3(cam + 3), r2 = load3(cam + 6);\n"
+         "      const V3 cam_pos = load3(cam + 9), light = load3(cam + 12);\n"
+         "      const V3 light_rgb = load3(cam + 15), indirect = load3(cam + 18);\n"
+         "      const float fS = (float)P.shadow_samples;\n", "")),
+}
+# The register instance reading its step at the top of the step, as the
+# deep instance does (where both read the step where it is used, as in an
+# older checkout, the patch does not apply).
+K2C_EAGER = {
+    "bwd_ray.cuh": (("          } else {\n            sv = saved[k];\n",
+                     "          } else {\n            const auto s_k = saved[k];\n"
+                     "            for (int j = 0; j < kStepFloats; ++j) "
+                     "sv_deep[j] = s_k[j];\n            sv = sv_deep;\n"),),
+}
+
+
+def patched_ms(tag: str, patches: dict, chain_index: bool, flag: str):
+    """``flag``'s JSON (``--k2c-ms`` or ``--k3b-ms``) from a copy of the
+    package under ``build/<tag>/`` with ``patches`` ({source: ((old, new),
+    ...)}) applied, and with ``chain_index`` every chain index of
+    bwd_ray.cuh made 0; run in a process of its own. None where a patch's
+    text is not in the source exactly once (an older checkout)."""
+    dst = os.path.join(ROOT, "build", tag)
+    shutil.rmtree(dst, ignore_errors=True)
+    pkg = os.path.join(dst, "uob_raytracer_tpu_torch")
+    shutil.copytree(os.path.join(ROOT, "uob_raytracer_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.abspath(__file__), dst)
+    csrc = os.path.join(pkg, "csrc")
+    for name, subs in patches.items():
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        for old, new in subs:
+            if text.count(old) != 1:
+                return None
+            text = text.replace(old, new)
+        with open(os.path.join(csrc, name), "w") as f:
+            f.write(text)
+    if chain_index:
+        path = os.path.join(csrc, "bwd_ray.cuh")
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(re.sub(r"\b(saved(?:_id)?)\[([^\]]+)\]", r"\1[0 * (\2)]",
+                           text))
+    run = subprocess.run([sys.executable, "chip_timing.py", flag],
+                         cwd=dst, stdout=subprocess.PIPE, text=True,
+                         check=True)
+    return json.loads(run.stdout.strip().splitlines()[-1])[flag[2:].replace(
+        "-", "_")]
+
+
+def blocks_per_sm_formula(registers: int, smem: int) -> int:
+    """Blocks of 128 threads an H100 SM holds by registers (65,536, a
+    warp's allocated in units of 256) and shared memory (228 KB, 1 KB
+    reserved a block), at most 16: the occupancy rule, for a checkout whose
+    library has no occupancy query."""
+    warp_regs = -(-registers * 32 // 256) * 256
+    by_regs = 65536 // (render_bwd.THREADS // 32 * warp_regs)
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, by_smem, 16)
+
+
+def k2c_split(out: dict) -> None:
+    """K2's chain kernel on the frames the routing sends to it (module
+    docstring)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variants = {name: patched_ms(f"k2c_{name}", patch, name == "nostore",
+                                 "--k2c-ms") or {}
+                for name, patch in (("nostore", K2C_NOSTORE),
+                                    ("eager", K2C_EAGER),
+                                    ("prefetch", K2C_PREFETCH),
+                                    ("camera_once", K2C_CAMERA_ONCE))}
+    own = k2c_ms(other_route=True)
+    per_ray = hasattr(render_bwd, "chain_blocks")  # one thread per AA ray
+    rows = {"sms": sms, "one_thread_per_aa_ray": per_ray}
+    for name, scene, cfg, _ in k2c_frames():
+        res = render_fwd.render_fused_res(scene, cfg, quads=None)[2]
+        n_obj = scene.num_triangles + scene.num_spheres
+        A, n_pix = cfg.aa_rays, cfg.width * cfg.height
+        deep = cfg.bounces > render_bwd.REG_BOUNCES
+        split = render_bwd.splits(cfg, cfg.height, n_obj)
+        chain_pix = flops.chain_rays(scene, cfg, res).reshape(A, -1).any(dim=0)
+        listed = int(chain_pix.sum()) if split else n_pix
+        resources = flops.kernel_resources(
+            f"render_bwd_kernel<{str(deep).lower()}>")
+        try:
+            smem = render_fwd.bwd_shared_bytes(n_obj, A)
+        except TypeError:          # a checkout without the chunk buffers
+            smem = render_fwd.bwd_shared_bytes(n_obj)
+        formula = blocks_per_sm_formula(resources["registers"], smem)
+        per_sm = (render_bwd.chain_blocks_per_sm(cfg, scene.num_triangles,
+                                                 scene.num_spheres)
+                  if hasattr(render_bwd, "chain_blocks_per_sm") else formula)
+        ppb = render_fwd.pixels_per_block(A) if per_ray else render_bwd.THREADS
+        grid = (render_bwd.chain_blocks(n_pix, A, split) if per_ray
+                else -(-n_pix // render_bwd.THREADS))
+        chunks = -(-listed // ppb)
+        row = {**own[name],
+               **{f"{v}_ms": t.get(name, {}).get("ms")
+                  for v, t in variants.items()},
+               "split": split, "pixels": n_pix, "aa_rays": A,
+               "chain_pixels": int(chain_pix.sum()), "listed_pixels": listed,
+               "chain_rays": int(flops.chain_rays(scene, cfg, res).sum()),
+               "resources": resources, "shared_bytes": smem,
+               "blocks_per_sm": per_sm, "blocks_per_sm_formula": formula,
+               "pixels_per_block": ppb, "grid_blocks": grid,
+               "blocks_with_work": min(grid, chunks),
+               "rays_a_thread": -(-chunks // grid) * ppb * A // render_bwd.THREADS,
+               "waves": min(grid, chunks) / (per_sm * sms),
+               "bounce_step_hits": int((res.bounce_id >= 0).sum()),
+               "sweeps": sweep_lane_steps(res, cfg, pixels=chain_pix
+                                          if split else None)}
+        # the chain launch's work (the listed pixels' rays and steps): its
+        # bound against the data sheet
+        row["work"] = flops.bwd_work(cfg, scene, res, pixels=chain_pix
+                                     if split else None)
+        row["bound_ms"], row["bound_by"] = flops.bound(*row["work"])
+        rows[name] = row
+    out["k2c_split"] = rows
 
 
 def bwd_routing(out: dict) -> None:
@@ -636,6 +866,12 @@ def default_pass(out: dict, npz: str | None) -> None:
     for key, sc, c, r, gg in (("full_1024", cornell, cfg, res, g),
                               ("mirror", mirror, cfg_m, res_m, g_m)):
         save_backward(saved, f"k2_{key}", sc, c, r, gg)
+    if npz:       # the chain kernel's other frames (--split k2c)
+        for key, sc, c, seed in k2c_frames():
+            if key not in ("full_1024", "mirror_box_512"):
+                r = render_fwd.render_fused_res(sc, c, quads=None)[2]
+                save_backward(saved, f"k2c_{key}", sc, c, r,
+                              seeded((c.height, c.width, 3), seed))
     d600 = dense_scene(600)
     res6 = render_fwd.render_fused_res(d600, CFG_BIG, _kernel="whole")[2]
     g6 = seeded((128, 128, 3), 61)
@@ -721,8 +957,9 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--npz", default=None)
     ap.add_argument("--split", nargs="?", const="all", default=None,
-                    choices=("k1", "k2k5", "k3b", "all"))
+                    choices=("k1", "k2k5", "k3b", "k2c", "all"))
     ap.add_argument("--k3b-ms", action="store_true")
+    ap.add_argument("--k2c-ms", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
     ap.add_argument("--sass", nargs=2, metavar="LIB", default=None)
     args = ap.parse_args()
@@ -740,16 +977,21 @@ def main() -> None:
         print(card, flush=True)
         out = {"tag": args.tag, "card": card, "source": ROOT,
                "pass": (f"split {args.split}" if args.split
-                        else "k3b" if args.k3b_ms else "default")}
+                        else "k3b" if args.k3b_ms
+                        else "k2c" if args.k2c_ms else "default")}
         if args.k3b_ms:
             out["k3b_ms"] = k3b_ms()
+        if args.k2c_ms:
+            out["k2c_ms"] = k2c_ms()
         if args.split in ("k1", "all"):
             k1_split(out)
         if args.split in ("k2k5", "all"):
             split_pass(out)
         if args.split in ("k3b", "all"):
             k3b_split(out)
-        if not (args.split or args.k3b_ms):
+        if args.split in ("k2c", "all"):
+            k2c_split(out)
+        if not (args.split or args.k3b_ms or args.k2c_ms):
             default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:

@@ -35,18 +35,20 @@ def test_streamed_backward_buffers_fit_the_grid(A, B, W, n):
     """The wrapper's per-site rows are (1 + B) * A rows of 16 floats a
     pixel, and its deep chain holds a slot per thread of the grid (13
     floats a step): ceil(n * W / pixels_per_block(A)) blocks of THREADS,
-    one thread per AA ray; the whole-table backward keeps one thread per
-    pixel and a partial row per block."""
+    one thread per AA ray; the whole-table chain kernel takes the same
+    grid without the chain-free launch's list (and a smaller one with it),
+    with a partial row per block."""
     cols = 2 * 16 + 21
     blocks = -(-n * W // tbwd.pixels_per_block(A))
     assert tbwd.launch_blocks(n * W, tbwd.pixels_per_block(A)) == blocks
     got = tbwd.band_bytes(n, W, A, B, cols, True)
     assert got["dlane"][0] == 4 * 16 * (1 + B) * A * n * W
     whole = tbwd.band_bytes(n, W, A, B, cols, False)
-    assert whole["partials"][0] == 4 * -(-n * W // THREADS) * cols
+    assert whole["partials"][0] == 4 * blocks * cols
+    assert tbwd.chain_blocks(n * W, A, False) == blocks
+    assert tbwd.chain_blocks(n * W, A, True) <= blocks
     if B > tbwd.REG_BOUNCES:
         assert got["chain"][0] == 4 * tbwd.CHAIN_FLOATS * B * blocks * THREADS
-        assert whole["chain"][0] == (4 * tbwd.CHAIN_FLOATS * B
-                                     * -(-n * W // THREADS) * THREADS)
+        assert whole["chain"][0] == got["chain"][0]
     else:
         assert "chain" not in got and "chain" not in whole

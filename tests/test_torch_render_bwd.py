@@ -479,7 +479,8 @@ def test_backward_in_row_bands_on_card(cuda_device, monkeypatch):
         (20, 96, 3)).astype(np.float32)).to(cuda_device)
     one, p_one = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
     cols = (sc.num_triangles + sc.num_spheres) * 16 + 21
-    monkeypatch.setattr(tbwd, "MAX_PARTIAL_BYTES", 4 * 3 * cols)  # 4 rows
+    # 4 rows: 12 blocks of pixels_per_block(4) = 32 pixels
+    monkeypatch.setattr(tbwd, "MAX_PARTIAL_BYTES", 4 * 12 * cols)
     before = tbwd.LAUNCHES
     two, p_two = tbwd.render_replay_bwd(sc, cfg, res, g, return_primal=True)
     three = tbwd.render_replay_bwd(sc, cfg, res, g)

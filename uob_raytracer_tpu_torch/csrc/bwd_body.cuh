@@ -1,8 +1,9 @@
-// One pixel's rays: the replay and its adjoint, as a body of code that each
-// backward kernel of render_bwd.cu includes INSIDE its __global__ function
-// (after it has staged its tables and synchronised), not a header of
-// declarations. What one ray does (the loop's body) is bwd_ray.cuh, which
-// the streamed kernel, one thread per AA ray, includes by itself. The
+// One pixel's rays: the replay and its adjoint, as a body of code that the
+// chain-free kernel of render_bwd.cu includes INSIDE its __global__
+// function (after it has staged its tables and synchronised), not a header
+// of declarations. What one ray does (the loop's body) is bwd_ray.cuh,
+// which the chain kernel and the streamed kernel, one thread per AA ray,
+// include by themselves. The
 // code is shared as text because nvcc compiles it 19% slower (0.49 against
 // 0.41 ms on the full_1024 frame, H100) when it sits in a function, even
 // one forced inline. Every thread of the block runs it, threads without a

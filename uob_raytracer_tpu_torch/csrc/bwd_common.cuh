@@ -5,11 +5,12 @@
 // its hand-derived adjoint, the bounce step's geometry, and the warp's
 // scatter. What one ray does with them (the forward sweep, the shading
 // adjoint, the reverse sweep, the adjoint of the primary hit and the ray
-// generation) is bwd_ray.cuh, which the streamed kernel includes inside its
-// __global__ function, one thread per AA ray; the whole-table kernel
-// includes bwd_body.cuh, a pixel's rays in a loop around it. The two
-// kernels differ in their launch, in where an object's row is read from
-// and in where a row's cotangent goes. The rules that make the gradient the framework's are
+// generation) is bwd_ray.cuh, which the streamed kernel and the
+// whole-table chain kernel include inside their __global__ functions, one
+// thread per AA ray; the whole-table chain-free kernel includes
+// bwd_body.cuh, a pixel's rays in a loop around it. The kernels differ in
+// their launch, in where an object's row is read from and in where a row's
+// cotangent goes. The rules that make the gradient the framework's are
 // listed at the top of render_bwd.cu. The warp's sums (warp_scatter,
 // warp_camera) stay a butterfly per column: a reduce-scatter (a lane keeps
 // half its columns at each level, 16 shuffles for an object's 16 columns

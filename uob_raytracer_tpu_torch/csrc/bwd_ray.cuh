@@ -1,6 +1,7 @@
 // One AA ray's replay and its adjoint: the body of bwd_body.cuh's loop over
-// a pixel's rays, and what the streamed kernel (render_bwd_streamed.cu, one
-// thread per AA ray) includes for its ray. Like bwd_body.cuh it is code,
+// a pixel's rays (the chain-free kernel), and what the chain kernel
+// (render_bwd.cu) and the streamed kernel (render_bwd_streamed.cu), one
+// thread per AA ray, include for their ray. Like bwd_body.cuh it is code,
 // included INSIDE a __global__ function, and every lane of a warp runs it
 // (a lane without a ray included: it takes part in the shuffles).
 //
@@ -14,6 +15,7 @@
 //   float dcam[kCamCols]     the thread's camera cotangents (added to)
 //   V3 img_acc               the replayed radiance (this ray's is added)
 //   ChainSteps<Deep> saved; ChainIds<Deep> saved_id   the chain storage
+//                            (bool Chain, Deep: as bwd_body.cuh lists them)
     const int id0 = in_img ? pid[a * n_pix + p] : -1;
     const float lit = in_img ? lit_in[a * n_pix + p] : 0.0f;
 
@@ -134,12 +136,26 @@
         RowGrad gr = zero_grad();
         int sid = -1;
         if (k < n_exec) {
-          const auto sv = saved[k];
+          // the deep instance reads its step's 12 floats from device memory
+          // into registers at the top of the step (PERF.md §6: K3b deep
+          // took 5% from it; reading step k - 1 during step k gained
+          // nothing); the register instance reads its own stack
+          float sv_deep[kStepFloats];
+          const float* sv;
+          if constexpr (Deep) {
+            const auto s_k = saved[k];
+#pragma unroll
+            for (int j = 0; j < kStepFloats; ++j) sv_deep[j] = s_k[j];
+            sv = sv_deep;
+          } else {
+            sv = saved[k];
+          }
+          const int sid_k = saved_id[k];
           const V3 cur_d = make(sv[0], sv[1], sv[2]), cur_pos = make(sv[3], sv[4], sv[5]);
           const V3 cur_nrm = make(sv[6], sv[7], sv[8]);
           const float w_prev = sv[11];
           const Step s = step_geometry(P, cur_d, cur_pos, cur_nrm, sv[9], sv[10]);
-          const Row row = REPLAY_LOAD_ROW(saved_id[k]);
+          const Row row = REPLAY_LOAD_ROW(sid_k);
           const bool diffuse = row.valid && row.mat > 0.0f;
           const bool cont = row.valid && row.mat <= 0.0f;
           // which outputs of the step the later cotangents reach
@@ -154,7 +170,7 @@
           }
           V3 dnstart = zero3();
           hit_bwd(row, s.nstart, s.ndirn, dh_pos, dh_nrm, dh_rgb, gr, dnstart, dndirn);
-          if (row.valid) sid = saved_id[k];
+          if (row.valid) sid = sid_k;
           // ndirn = ndir * inv, inv = max(ndir.ndir, 1e-30)^(-1/2)
           V3 dndir = scale(s.inv, dndirn);
           const float dinv = dot(dndirn, s.ndir);

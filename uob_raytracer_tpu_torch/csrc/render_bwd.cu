@@ -22,39 +22,50 @@
 // and sqrt are IEEE with their plain derivatives.
 //
 // Design:
-// - One thread per pixel, looping over its A rays as the forward kernel
-//   does. Per ray: a forward sweep over the bounce steps the ray really ran
-//   (the record's depth, not the budget) that keeps the 12 floats a step's
+// - Per ray: a forward sweep over the bounce steps the ray really ran (the
+//   record's depth, not the budget) that keeps the 12 floats a step's
 //   adjoint needs (cur_d, cur_pos, cur_nrm, cur_mat, medium, weight) in
 //   per-thread storage, the shading adjoint, the reverse sweep, and the
-//   adjoint of the primary hit and the ray generation (bwd_body.cuh).
+//   adjoint of the primary hit and the ray generation (bwd_ray.cuh).
 // - Split by the record. Only a ray whose primary object is specular has a
 //   bounce chain: 6.4% of the rays at full_1024. The chain's storage
 //   (float[16][12] a thread, indexed at run time) held every thread to 168
-//   registers, a 912 B stack and 3 blocks an SM. So a gradient is two
-//   launches when the wrapper's rule says so (render_bwd.py:splits). render_bwd_free_kernel runs every pixel none
-//   of whose rays has a chain: the body without chain storage, step code or
-//   reverse sweep, at 4 blocks an SM (128 registers). It also writes, in
-//   order, the pixels it leaves out (a pixel with any chain ray goes whole,
-//   so that its rays stay in one thread, in ray order): per block a list
-//   and a count, which the wrapper turns into offsets with one cumsum on
-//   the device (no wait for the host). A block with no pixel left stops
-//   before it stages the tables, a warp with none skips the body.
-//   render_bwd_kernel then runs the listed pixels, compacted, 128 to a
-//   block, each thread finding its pixel by a binary search over the
-//   offsets; the grid is the frame's block count, and the blocks past the
-//   list write zeros and stop. It is held to 3 blocks an SM (168
-//   registers; left free, ptxas took 197 and the launch ran slower). The
-//   register instance (Deep = false) keeps the chain in the per-thread
-//   array of kRegBounces steps; a deeper config launches the deep instance
-//   (Deep = true), whose chain lives in a device buffer the wrapper
-//   allocates (bwd_common.cuh: DeepSteps), so any bounce count runs.
-//   Otherwise render_bwd_kernel alone runs every pixel, as before the
-//   split: past 32 objects (the staged table and the accumulators grow to
-//   hundreds of KB a block, which a second launch would stage and zero
-//   again), without bounces, and below a million rays (where the chain
-//   launch's floor, a few waves of blocks each as slow as its deepest
-//   chain, costs more than the chain-free launch saves).
+//   registers, an 848 B stack and 3 blocks an SM. So a gradient is two
+//   launches when the wrapper's rule says so (render_bwd.py:splits).
+//   render_bwd_free_kernel, one thread per pixel looping over its A rays
+//   (bwd_body.cuh), runs every pixel none of whose rays has a chain: the
+//   body without chain storage, step code or reverse sweep, at 4 blocks an
+//   SM (128 registers). It also writes, in order, the pixels it leaves out
+//   (a pixel with any chain ray goes whole, so that its rays stay in one
+//   block and its radiance is summed in ray order): per block a list and a
+//   count, which the wrapper turns into offsets with one cumsum on the
+//   device (no wait for the host). A block with no pixel left stops before
+//   it stages the tables, a warp with none skips the body.
+//   render_bwd_kernel then runs the listed pixels, compacted, one thread
+//   per AA ray, on the free launch's grid: block b takes chunks b, b +
+//   grid, ... of pixels_per_block(A) listed pixels (32 at 2x2 AA), each
+//   ray finding its pixel by a binary search over the offsets; a block
+//   with no chunk writes zeros and stops. Otherwise render_bwd_kernel alone
+//   runs every pixel, one block a chunk: past 32 objects (the staged table
+//   and the accumulators grow to hundreds of KB a block, which a second
+//   launch would stage and zero again), without bounces, and below a
+//   million rays (where the chain launch's floor costs more than the
+//   chain-free launch saves). In a chunk ray a of pixel l is item a * ppb
+//   + l and thread t takes items t, t + 128, ..., so a warp holds one AA
+//   index of 32 adjacent pixels (as K1 and the streamed kernel); the rays'
+//   radiance meets in shared memory and one thread per pixel adds it in
+//   ray order, so the image is the one-thread-per-pixel loop's bit for
+//   bit. One thread per pixel ran a pixel's rays in series on too few
+//   blocks: full_1024's 68k listed pixels were 533 blocks for 396 slots,
+//   the headline's 134, dense_scene(256) at 128x128 aa4 (258 objects, 2
+//   blocks an SM by shared memory) 128 for 264 (PERF.md §6). The chain
+//   kernel is held to 3 blocks an SM (168 registers; left free, ptxas took
+//   197 and the launch ran slower). The register instance (Deep = false)
+//   keeps the chain in the per-thread array of kRegBounces steps (cutting
+//   its stores and loads saved at most 4%); a deeper config launches the
+//   deep instance (Deep = true), whose chain lives in a device buffer the
+//   wrapper allocates (bwd_common.cuh: DeepSteps), a slot per thread of
+//   the grid reused by its items, so any bounce count runs.
 // - The object rows (28 x 17 floats on the Cornell box) are staged into
 //   shared memory as one unified table, so a gather is one indexed read:
 //   the TPU kernel's presence-bit gather loop and its de Bruijn LUT are not
@@ -79,14 +90,16 @@
 //   lanes idle, so that all 32 lanes meet at every shuffle.
 //
 // What bounds it on this card: FP32 issue and latency. The split that
-// decided the design (chip_timing.py --split: K7, the structure twin, with
-// the shuffles, the chain storage and the register cap changed one at a
-// time) found the shuffles and the chain's storage each worth 18% of the
-// twin's time, and a register cap a loss wherever it spilled. At
-// full_1024 the chain-free launch takes 0.22 ms for 93.5% of the pixels,
-// the chain launch 0.13 ms for the rest and their bounce steps; the record
-// (4 + 4 + 4*bounces bytes per ray) and the partial sums are small beside
-// that. PERF.md has the runs.
+// decided the chain-free launch (chip_timing.py --split k2k5: K7, the
+// structure twin, with the shuffles, the chain storage and the register
+// cap changed one at a time) found the shuffles and the chain's storage
+// each worth 18% of the twin's time, and a register cap a loss wherever it
+// spilled; the chain kernel's own split (--split k2c) found its chain
+// storage worth at most 2% (12% in the deep instance) and its grid the
+// gap. At full_1024 the chain-free launch takes 0.22 ms for 93.5% of the
+// pixels, the chain launch 0.12 ms for the rest and their bounce steps;
+// the record (4 + 4 + 4*bounces bytes per ray) and the partial sums are
+// small beside that. PERF.md has the runs.
 //
 // The per-ray replay and its adjoint live in bwd_common.cuh and
 // bwd_ray.cuh (which bwd_body.cuh loops over a pixel's rays), shared with
@@ -117,6 +130,13 @@ __device__ __forceinline__ Row load_row(const float* obj, int n_tri, int id) {
   r.mat = R[15];
   r.r2 = R[16];
   return r;
+}
+
+// Pixels of one chunk of the chain kernel: 32 * 4 / gcd(A, 4), the
+// fewest whole warps of pixels whose A rays fill whole rounds of kThreads
+// threads (as pixels_per_block in render_fwd.cu).
+__host__ __device__ inline int pixels_per_block(int A) {
+  return A % 4 == 0 ? 32 : (A % 2 == 0 ? 64 : 128);
 }
 
 // The chain-free launch's blocks an SM: ptxas holds it to 128 registers
@@ -273,11 +293,15 @@ __global__ void __launch_bounds__(kThreads, kFreeBlocks)
   WRITE_PARTIAL_ROW();
 }
 
-// The pixels with a bounce chain, 128 to a block. With a list (the free
-// kernel's, and off [blocks], the inclusive sums of its counts): block b
-// runs listed pixels b * 128 ..., each thread finding its pixel by a
-// binary search over off; the blocks past the list write zeros and stop.
-// Without (more than 32 objects): block b runs pixels b * 128 ...
+// The pixels with a bounce chain, one thread per AA ray. The grid walks
+// chunks of ppb pixels (pixels_per_block(A): 32 at 2x2 AA, 128 at one ray),
+// block b taking chunks b, b + gridDim.x, ...; in a chunk ray a of pixel l
+// is item a * ppb + l and thread t takes items t, t + 128, ..., so a warp
+// holds one AA index of 32 pixels. With a list (the free kernel's, and off
+// [n_src], the inclusive sums of its counts) chunk c holds listed pixels
+// c * ppb ..., each item finding its pixel by a binary search over off; a
+// block with no chunk writes zeros and stops. Without (more than 32
+// objects, or below SPLIT_RAYS) chunk c holds pixels c * ppb ...
 template <bool Deep>
 __global__ void __launch_bounds__(kThreads, kChainBlocks)
     render_bwd_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
@@ -289,43 +313,96 @@ __global__ void __launch_bounds__(kThreads, kChainBlocks)
   const size_t n_pix = (size_t)P.rows * P.width;
   const int n_src = (int)((n_pix + kThreads - 1) / kThreads);
   const size_t n_work = list != nullptr ? (size_t)off[n_src - 1] : n_pix;
-  if ((size_t)blockIdx.x * kThreads >= n_work) {
+  const int A = P.aa_x * P.aa_y;
+  const int ppb = pixels_per_block(A);
+  const size_t n_chunks = (n_work + ppb - 1) / ppb;
+  if (blockIdx.x >= n_chunks) {
     zero_partial_row(partial, P);
     return;
   }
   STAGE_TABLES();
-  const size_t chain_stride = (size_t)n_src * kThreads;
-  const size_t j = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  // threads past the last pixel stay: they carry no ray but take part in
-  // the warp's shuffles
-  const bool in_img = j < n_work;
-  size_t p = j;
-  if (list != nullptr && in_img) {
-    int lo = 0, hi = n_src - 1;  // the first source block past j
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if ((size_t)off[mid] > j)
-        hi = mid;
-      else
-        lo = mid + 1;
-    }
-    p = (size_t)list[(size_t)lo * kThreads + (j - (lo ? (size_t)off[lo - 1] : 0))];
-  }
+  float* col = acc + kWarps * acc_cols;        // [A][3][ppb]: the rays' radiance
+  int* pix = reinterpret_cast<int*>(col + A * 3 * ppb);  // [ppb]: the chunk's pixels
+
+  // the deep chain's slot is the thread's, reused by its items in turn
+  const size_t chain_stride = (size_t)gridDim.x * kThreads;
+  ChainSteps<Deep> saved;
+  ChainIds<Deep> saved_id;
+  deep_chain<Deep>(saved, saved_id, chain, (size_t)blockIdx.x * kThreads + threadIdx.x,
+                   chain_stride);
+  const float fA = (float)A;
+  float dcam[kCamCols];
+#pragma unroll
+  for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
   constexpr bool Chain = true;
   WholeTables<false> tb;
   tb.obj = obj;
   tb.wacc = wacc;
   tb.n_tri = P.n_tri;
+
+  for (size_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    for (int item = threadIdx.x; item < ppb * A; item += kThreads) {
+      const int a = item / ppb, lp = item - a * ppb;
+      const size_t j = c * ppb + lp;
+      // a lane past the last pixel stays: it carries no ray but takes part
+      // in the warp's shuffles
+      const bool in_img = j < n_work;
+      size_t p = j;
+      if (list != nullptr && in_img) {
+        int lo = 0, hi = n_src - 1;  // the first source block past j
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if ((size_t)off[mid] > j)
+            hi = mid;
+          else
+            lo = mid + 1;
+        }
+        p = (size_t)list[(size_t)lo * kThreads + (j - (lo ? (size_t)off[lo - 1] : 0))];
+      }
+      if (a == 0) pix[lp] = in_img ? (int)p : -1;
+      const int py = in_img ? (int)(p / P.width) : 0;
+      const int px = in_img ? (int)(p - (size_t)py * P.width) : 0;
+      const float bx0 = (float)px * (float)P.aa_x - P.half_w;
+      const float by0 = (float)(P.row0 + py) * (float)P.aa_y - P.half_h;
+      V3 gpix = zero3();
+      if (in_img) gpix = load3(g_img + p * 3);
+      // cotangent of one ray's color: the AA mean is sum / A
+      const V3 dcolor = make(gpix.x / fA, gpix.y / fA, gpix.z / fA);
+      V3 img_acc = zero3();
+      // the camera row from shared memory for each ray, so that it is not
+      // held in registers across the walk (PERF.md §6)
+      const V3 r0 = load3(cam), r1 = load3(cam + 3), r2 = load3(cam + 6);
+      const V3 cam_pos = load3(cam + 9), light = load3(cam + 12);
+      const V3 light_rgb = load3(cam + 15), indirect = load3(cam + 18);
+      const float fS = (float)P.shadow_samples;
 #define REPLAY_LOAD_ROW(id) tb.load(id)
 #define REPLAY_SCATTER(site, a, id, g) tb.scatter(site, a, id, g)
-#define REPLAY_FLUSH() tb.flush()
-#define REPLAY_WCAM (wacc + n_obj * kGradCols)
-#include "bwd_body.cuh"
+#include "bwd_ray.cuh"
 #undef REPLAY_LOAD_ROW
 #undef REPLAY_SCATTER
-#undef REPLAY_FLUSH
-#undef REPLAY_WCAM
+      col[(a * 3 + 0) * ppb + lp] = img_acc.x;
+      col[(a * 3 + 1) * ppb + lp] = img_acc.y;
+      col[(a * 3 + 2) * ppb + lp] = img_acc.z;
+    }
+    __syncthreads();
+    // the replayed radiance: each pixel's rays added in ray order, ((0 +
+    // c0) + c1) + ..., and divided by A, as one thread looping over them
+    for (int l = threadIdx.x; P.want_img && l < ppb; l += kThreads) {
+      const int p = pix[l];
+      if (p < 0) break;
+      V3 s = zero3();
+      for (int a = 0; a < A; ++a)
+        s = add(s, make(col[(a * 3 + 0) * ppb + l], col[(a * 3 + 1) * ppb + l],
+                        col[(a * 3 + 2) * ppb + l]));
+      img[(size_t)p * 3 + 0] = s.x / fA;
+      img[(size_t)p * 3 + 1] = s.y / fA;
+      img[(size_t)p * 3 + 2] = s.z / fA;
+    }
+    __syncthreads();  // col and pix are the next chunk's
+  }
 
+  // --- camera cotangents: the warp's 21 sums ---
+  warp_camera(wacc + n_obj * kGradCols, dcam);
   WRITE_PARTIAL_ROW();
 }
 
@@ -335,6 +412,21 @@ __global__ void __launch_bounds__(kThreads, kChainBlocks)
 size_t whole_smem(const Params& P) {
   const size_t n_obj = (size_t)P.n_tri + P.n_sph;
   return sizeof(float) * (n_obj * kObjCols + kCamCols + kWarps * (n_obj * kGradCols + kCamCols));
+}
+
+// The chain kernel's: the tables, the radiance of a chunk's rays and its
+// pixels (kernels/render_fwd.py:bwd_shared_bytes).
+size_t chain_smem(const Params& P) {
+  const int A = P.aa_x * P.aa_y;
+  return whole_smem(P) + sizeof(float) * (size_t)pixels_per_block(A) * (A * 3 + 1);
+}
+
+// The chain launch's grid: the free launch's block count with a list (its
+// blocks walk the listed pixels' chunks), else one block a chunk of every
+// pixel.
+unsigned chain_blocks(long long n_pix, int A, bool listed) {
+  const long long ppb = listed ? kThreads : pixels_per_block(A);
+  return (unsigned)((n_pix + ppb - 1) / ppb);
 }
 
 template <class F>
@@ -351,8 +443,10 @@ cudaError_t allow_smem(F kernel, size_t smem) {
 // img [rows, W, 3] receives the replayed radiance when want_img is set
 // (else it may be null). Up to kRegBounces bounces the register instance
 // of the chain launch runs and chain may be null; a deeper config runs the
-// deep instance, which needs chain: kChainFloats * bounces * 128 *
-// ceil(rows*W / 128) floats of scratch (contents on entry do not matter).
+// deep instance, which needs chain: kChainFloats * bounces * 128 * blocks
+// floats of scratch, blocks the chain launch's grid (chain_blocks: with
+// the list ceil(rows*W / 128), without it ceil(rows*W / pixels_per_block(A)));
+// contents on entry do not matter.
 
 // The chain-free launch (up to 32 objects): partial [ceil(rows*W / 128),
 // (n_tri+n_sph)*16 + 21] is overwritten, list [ceil(rows*W / 128) * 128]
@@ -377,8 +471,8 @@ extern "C" int render_bwd_free_launch(const float* tri, const float* sph, const 
 
 // The chain launch: with list and off (the free launch's list and the
 // inclusive sums of its counts, on the device) over the listed pixels;
-// without (list null) over every pixel. partial [ceil(rows*W / 128),
-// (n_tri+n_sph)*16 + 21] is overwritten. Returns cudaGetLastError() of the
+// without (list null) over every pixel. partial [blocks, (n_tri+n_sph)*16
+// + 21] is overwritten, blocks as chain_blocks says. Returns cudaGetLastError() of the
 // launch, or cudaErrorInvalidValue when a deep config comes without its
 // chain.
 extern "C" int render_bwd_launch(const float* tri, const float* sph, const float* cam,
@@ -392,11 +486,22 @@ extern "C" int render_bwd_launch(const float* tri, const float* sph, const float
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
   const auto fn = deep ? render_bwd_kernel<true> : render_bwd_kernel<false>;
-  const size_t smem = whole_smem(P);
+  const size_t smem = chain_smem(P);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
+  const unsigned blocks = chain_blocks(n_pix, P.aa_x * P.aa_y, list != nullptr);
   fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid, partial,
                                                       img, chain, list, off, P);
   return (int)cudaGetLastError();
+}
+
+// How many blocks of the chain kernel's instance for these parameters one
+// SM holds (the runtime's occupancy count), into *blocks.
+extern "C" int render_bwd_blocks_per_sm(const int* ip, const float* fp, int* blocks) {
+  const Params P = make_params(ip, fp);
+  const auto fn = P.bounces > kRegBounces ? render_bwd_kernel<true> : render_bwd_kernel<false>;
+  const size_t smem = chain_smem(P);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
 }

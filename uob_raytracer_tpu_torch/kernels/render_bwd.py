@@ -20,7 +20,7 @@ per-block partial sums of all cotangents, summed here over blocks. Up to
 record:
 the chain-free kernel runs every pixel none of whose rays bounces (no chain
 storage, so more blocks an SM) and lists the others, and the chain kernel
-runs the listed pixels, compacted, 128 to a block (``torch.cumsum`` of
+runs the listed pixels, compacted, one thread per AA ray (``torch.cumsum`` of
 the per-block counts on the device turns the lists into offsets; nothing
 waits for the host). Past that one launch of the chain kernel runs every
 pixel. The streamed kernel (``csrc/render_bwd_streamed.cu``, the counterpart of
@@ -198,6 +198,22 @@ def _declare(lib: ctypes.CDLL, streamed: bool):
     return {"chain": chain, "free": free}
 
 
+def chain_blocks_per_sm(cfg: RenderConfig, n_tri: int, n_sph: int) -> int:
+    """How many blocks of the whole-table chain kernel one SM of the
+    current CUDA device holds at ``cfg`` (the runtime's occupancy count for
+    the instance the config launches): an instrument, beside
+    ``streamed_blocks_per_sm``."""
+    ints, floats = launch_params(cfg, 0, cfg.height, n_tri, n_sph, False)
+    fn = _build.load().render_bwd_blocks_per_sm
+    fn.argtypes = [_INTS, _FLOATS, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ints, floats, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"render_bwd_blocks_per_sm: CUDA error {err}")
+    return out.value
+
+
 def streamed_blocks_per_sm(cfg: RenderConfig, n_tri: int, n_sph: int) -> int:
     """How many blocks of the streamed backward kernel one SM of the
     current CUDA device holds at ``cfg`` (the runtime's occupancy count for
@@ -223,16 +239,27 @@ def launch_blocks(n_pix: int, ppb: int) -> int:
     return -(-n_pix // ppb)
 
 
+def chain_blocks(n_pix: int, aa_rays: int, listed: bool) -> int:
+    """The grid of the whole-table chain kernel over a band of n_pix pixels
+    (``chain_blocks`` in csrc/render_bwd.cu): with the chain-free launch's
+    list, that launch's block count (a block walks the listed pixels'
+    chunks of ``pixels_per_block(aa_rays)``: blocks b, b + grid, ...);
+    without it, one block a chunk of every pixel."""
+    return launch_blocks(n_pix, THREADS if listed else
+                         pixels_per_block(aa_rays))
+
+
 def band_bytes(n: int, W: int, A: int, B: int, cols: int,
                streamed: bool) -> dict:
     """{name: (bytes, limit)} of the buffers one launch over a band of n
     rows needs: the per-block partials (whole-table; each of the split's
     two launches has a buffer of its own) or the per-site rows (streamed),
     and the deep chain when B > REG_BOUNCES: a slot per thread of the grid,
-    whose block takes ``pixels_per_block(A)`` pixels (streamed, one thread
-    per AA ray) or THREADS (whole-table, one thread per pixel)."""
-    threads = launch_blocks(
-        n * W, pixels_per_block(A) if streamed else THREADS) * THREADS
+    whose block takes ``pixels_per_block(A)`` pixels, one thread per AA ray
+    (the streamed kernel, and the whole-table chain kernel without the
+    chain-free launch's list; with it the grid is smaller,
+    ``chain_blocks``)."""
+    threads = launch_blocks(n * W, pixels_per_block(A)) * THREADS
     out = ({"dlane": (4 * GRAD_COLS * (1 + B) * A * n * W, MAX_DLANE_BYTES)}
            if streamed else
            {"partials": (4 * (threads // THREADS) * cols, MAX_PARTIAL_BYTES)})
@@ -410,10 +437,10 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
         cols = n_sph * GRAD_COLS + CAM_COLS
     else:
         cols = n_obj * GRAD_COLS + CAM_COLS
-        if shared_bytes(n_obj) > SMEM_BUDGET_BYTES:
+        if shared_bytes(n_obj, A) > SMEM_BUDGET_BYTES:
             raise ValueError(
                 f"render_bwd: {n_obj} objects: the whole-table backward "
-                f"kernel needs {shared_bytes(n_obj)} B of shared memory "
+                f"kernel needs {shared_bytes(n_obj, A)} B of shared memory "
                 f"(limit {SMEM_BUDGET_BYTES})")
     bands = _row_bands(rows, W, A, B, cols, streamed)
 
@@ -433,10 +460,13 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
 
     # one set of buffers, of the tallest band, reused band after band
     h = max((n for _, n in bands), default=0)
-    # the streamed kernel takes one thread per AA ray, the whole-table one
-    # a thread per pixel
-    ppb = pixels_per_block(A) if streamed else THREADS
-    threads = launch_blocks(h * W, ppb) * THREADS
+    split = not streamed and splits(cfg, rows, n_obj)
+    # the streamed kernel and the chain kernel take one thread per AA ray
+    # (the chain kernel over the chain-free launch's list walks it on that
+    # launch's grid)
+    ppb = pixels_per_block(A)
+    threads = (chain_blocks(h * W, A, split) if not streamed
+               else launch_blocks(h * W, ppb)) * THREADS
     partial = torch.empty((threads // THREADS, cols), dtype=torch.float32,
                           device=dev)
     dlane = (torch.empty(((1 + B) * A * h * W, GRAD_COLS),
@@ -447,7 +477,6 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     img = (torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
            if return_primal else None)
     launch = _declare(_build.load(), streamed)
-    split = not streamed and splits(cfg, rows, n_obj)
     if split:
         # the chain-free launch's lists of the pixels it leaves out, and the
         # chain launch's partial rows
@@ -462,7 +491,8 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
         else:
             g_b = g[o:o + n].contiguous()
             res_b = Residuals(*(t[..., o:o + n, :].contiguous() for t in res))
-        partial_b = partial[:launch_blocks(n * W, ppb)]
+        partial_b = partial[:launch_blocks(n * W, ppb) if streamed
+                            else chain_blocks(n * W, A, split)]
         outs = [partial_b]
         if streamed:
             # the kernel writes only the sites that hit a triangle: the rest

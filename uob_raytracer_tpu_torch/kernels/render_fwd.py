@@ -151,13 +151,16 @@ def shared_bytes(n_tri: int, n_sph: int, n_shd: int, aa_rays: int = 1) -> int:
                 + n_shd * SHD_COLS + pixels_per_block(aa_rays) * aa_rays * 3)
 
 
-def bwd_shared_bytes(n_obj: int) -> int:
-    """Shared memory one block of the whole-table backward kernel uses
-    (must match the launcher in csrc/render_bwd.cu): the object table, the
-    camera row, and one cotangent accumulator per warp."""
+def bwd_shared_bytes(n_obj: int, aa_rays: int = 1) -> int:
+    """Shared memory one block of the whole-table backward's chain kernel
+    uses (must match ``chain_smem`` in csrc/render_bwd.cu): the object
+    table, the camera row, one cotangent accumulator per warp, and the
+    radiance of a chunk's ``pixels_per_block(aa_rays) * aa_rays`` rays and
+    its pixels' indices (the chain-free kernel uses all but the last two)."""
     warps = THREADS // 32
     return 4 * (n_obj * OBJ_COLS + CAM_COLS
-                + warps * (n_obj * GRAD_COLS + CAM_COLS))
+                + warps * (n_obj * GRAD_COLS + CAM_COLS)
+                + pixels_per_block(aa_rays) * (3 * aa_rays + 1))
 
 
 def use_streamed(n_tri: int, n_sph: int) -> bool:

@@ -74,13 +74,19 @@ phase raising on failure and none caught:
    bwdmix) and K (1 to 32), the census probe (the JAX test fixture's
    counterpart) to its plain version and its SASS to 5 FMUL + 3 FADD, and
    K7, the structure twin of the backward kernel (``csrc/bwd_twin.cu``),
-   sized to the backward's counts on its record, to its plain version at
-   the JAX package's roofline config (512x512, 2x2 AA, 10 samples, 1
-   bounce) and at full_1024; then, counts from 0, drives
+   launch for launch as the backward takes its launches (the free twin
+   and the chain twin over its list where the backward splits, the chain
+   twin alone elsewhere), each launch sized to its own backward launch's
+   counts and registers, to its plain version (sums, visits, the image
+   bit for bit, the free twin's list against the backward's) at the JAX
+   package's roofline config (512x512, 2x2 AA, 10 samples, 1 bounce), at
+   full_1024 and at mirror_512 (one launch); then, counts from 0, drives
    ``flops.measure_fp32_peak`` over every mode and K with the SM clock
-   sampled beside it, the probe, and the twin on both records, and times
-   each twin beside the backward kernel on the same record (their ratio,
-   registers, spills and SASS census);
+   sampled beside it, the probe, the launch floor on its grid, and the
+   twin on every record, and times the probe beside the floor (a launch
+   that does nothing, and one that only copies its input) and each
+   twin launch beside its backward launch on the same record (their
+   ratio, registers, spills, blocks an SM and SASS census);
 10. the live loop (``preview.py``): ``latency_bench``, the headless drive
    of the reference's event loop (key -> camera controller -> light step ->
    ``render()`` -> fetch of the float image to the host), 32 key events at
@@ -380,7 +386,8 @@ def reset_counts() -> None:
     render_bwd.FREE_LAUNCHES = 0
     render_bwd.SEGMENT_SUM_LAUNCHES = 0
     partial.NEAREST_LAUNCHES = partial.OCCLUDED_LAUNCHES = 0
-    peak.LAUNCHES = peak.PROBE_LAUNCHES = bwd_twin.LAUNCHES = 0
+    peak.LAUNCHES = peak.PROBE_LAUNCHES = peak.FLOOR_LAUNCHES = 0
+    bwd_twin.LAUNCHES = bwd_twin.FREE_LAUNCHES = 0
 
 
 def partial_counts() -> tuple[int, int]:
@@ -1683,10 +1690,10 @@ def main() -> None:
 
     # --- 11. the roofline: K6, the FP32 peak chains (every mode and K held
     # to its plain version, then timed: the card's no-FMA ceiling), the
-    # census probe (the JAX test fixture's counterpart), and K7, the
-    # structure twin of K2, at the JAX package's roofline config
-    # (bench.py:837-838) and at full_1024, held to its plain version and
-    # timed beside K2 ---
+    # census probe (the JAX test fixture's counterpart) beside its launch
+    # floor, and K7, the structure twin of K2, launch for launch at the JAX
+    # package's roofline config (bench.py:837-838), at full_1024 and at
+    # mirror_512, held to its plain version and timed beside K2 ---
     # 11a. K6 against its plain version on a seeded input of the timed shape
     jitter = 1.0 - 1e-4 * np.random.RandomState(81).uniform(
         size=flops.PEAK_SHAPE)
@@ -1729,60 +1736,86 @@ def main() -> None:
           f"int {probe['int']}, mem {probe['mem']}, control "
           f"{probe['control']}, other {probe['other']}", flush=True)
 
-    # 11c. K7 against its plain version, sized to K2's counts on each record
+    # 11c. K7 against its plain version launch by launch, each twin launch
+    # sized to its own K2 launch (counts and registers) on each record: the
+    # JAX package's roofline record and full_1024, which K2 splits (the
+    # free twin, then the chain twin over the free twin's list, which must
+    # be K2f's), and mirror_512, which K2 takes in one launch
     cfg_roof = RenderConfig(width=512, height=512, aa_x=2, aa_y=2,
                             shadow_samples=10, bounces=1)
     res_roof = render_fwd.render_fused_res(cornell, cfg_roof, quads=None)[2]
-    k2_res = flops.kernel_resources("render_bwd_kernel<false>")
-    n_obj = cornell.num_triangles + cornell.num_spheres
+    k2_res = {kind: flops.kernel_resources(sym)
+              for kind, sym in flops.K2_OF_TWIN.items()}
     twins = {}
-    for tname, tcfg, tres in (("512x512 aa4 s10 b1", cfg_roof, res_roof),
-                              ("full_1024", RenderConfig(),
-                               records["full_1024"])):
-        targets = flops.bwd_twin_targets(cornell, tcfg, tres)
-        twin = flops.build_bwd_structure_twin(
-            cornell, tcfg, tres, **targets,
-            target_registers=k2_res["registers"])
-        sums, img = twin["run"]()
+    for tname, tscene, tcfg, tres in (
+            ("512x512 aa4 s10 b1", cornell, cfg_roof, res_roof),
+            ("full_1024", cornell, RenderConfig(), records["full_1024"]),
+            ("mirror_512", scenes["mirror_512"][0],
+             baseline_configs()["mirror_512"], records["mirror_512"])):
+        t_obj = tscene.num_triangles + tscene.num_spheres
+        twin = flops.build_bwd_structure_twin(tscene, tcfg, tres)
+        parts, img = twin["run"](parts=True)
         ref = twin["run_plain"]()
         torch.cuda.synchronize()
-        rel = ((sums.double() - ref["sums"]).abs()
-               / ref["abs_sums"].clamp(min=1e-30)).max().item()
-        visits = sums[:n_obj * 16].reshape(n_obj, 16)[:, 15].round().long()
-        img_rel = ((img - ref["img"]).abs()
-                   / ref["img"].abs().clamp(min=1e-30)).max().item()
-        if (rel > 1e-5 or img_rel > 1e-5 or not torch.equal(
-                visits, ref["visits"]) or not torch.isfinite(sums).all()):
+        kinds = ("free", "chain") if twin["split"] else ("chain",)
+        held = {}
+        for kind in kinds:
+            want, got = ref["launches"][kind], parts[kind]
+            visits = got[:t_obj * 16].reshape(t_obj, 16)[:, 15].round().long()
+            held[kind] = {
+                "rel": ((got.double() - want["sums"]).abs()
+                        / want["abs_sums"].clamp(min=1e-30)).max().item(),
+                "abs": (got.double() - want["sums"]).abs().max().item(),
+                "visits": torch.equal(visits, want["visits"]),
+                "sites": int(visits.sum()),
+                "finite": bool(torch.isfinite(got).all())}
+        img_equal = torch.equal(img, ref["img"])
+        list_equal = (not twin["split"] or torch.equal(
+            parts["list"], bwd_twin.k2_free_list(tscene, tcfg, tres)))
+        if (not img_equal or not list_equal or any(
+                h["rel"] > 1e-5 or not h["visits"] or not h["finite"]
+                for h in held.values())):
             raise AssertionError(
-                f"K7 at {tname}: sums off the plain version by {rel:.3g} of "
-                f"their terms' magnitudes (budget 1e-5), image by "
-                f"{img_rel:.3g}, visits equal: "
-                f"{torch.equal(visits, ref['visits'])}")
-        g_t = seeded_cotangent((tcfg.height, tcfg.width, 3), 91)
+                f"K7 at {tname}: launches against the plain version {held} "
+                f"(budget 1e-5 of the terms' magnitudes, visits exact), image "
+                f"bit-equal {img_equal}, the free twin's list K2f's "
+                f"{list_equal}")
+        chain_pix = ref["chain_pixels"]
         twins[tname] = {
-            "twin": twin, "cfg": tcfg, "res": tres, "rel": rel,
-            "abs": (sums.double() - ref["sums"]).abs().max().item(),
-            "img_equal": torch.equal(img, ref["img"]), "targets": targets,
-            "resources": flops.kernel_resources(bwd_twin.symbol(
-                twin["n_pool"])),
-            "k2": lambda c=tcfg, r=tres, gg=g_t: render_bwd.render_replay_bwd(
-                cornell, c, r, gg)}
-        print(f"K7 structure twin at {tname}: vs plain, sums within {rel:.3g} "
-              f"of their terms' magnitudes (budget 1e-5), visits exact "
-              f"({int(visits.sum())} sites), image "
-              f"{'bit-equal' if twins[tname]['img_equal'] else f'within {img_rel:.3g}'}"
-              f"; sizing n_main {twin['n_main']}, n_step {twin['n_step']}, "
-              f"slots {twin['slots']}, divs {twin['divs']}, pool "
-              f"{twin['n_pool']}; per ray {twin['census_per_lane']} ops "
-              f"(K2 {twin['target_per_lane']}), depth {twin['depth']} "
-              f"(K2 {twin['target_depth']}), weighted depth {twin['wdepth']} "
-              f"(K2 {twin['target_wdepth']}), slow {twin['slow_per_lane']} "
-              f"(K2 {twin['target_slow_per_lane']}), bounce steps per ray "
-              f"{targets['live']:.4f}", flush=True)
+            "twin": twin, "scene": tscene, "cfg": tcfg, "res": tres,
+            "kinds": kinds, "held": held, "n_obj": t_obj,
+            "pixels": {"free": None if chain_pix is None else ~chain_pix,
+                       "chain": chain_pix},
+            "resources": {k: flops.kernel_resources(twin[k]["symbol"])
+                          for k in kinds},
+            "blocks_per_sm": {k: bwd_twin.blocks_per_sm(
+                k, twin[k]["n_pool"], tcfg, t_obj) for k in kinds},
+            "k2": lambda s=tscene, c=tcfg, r=tres, gg=seeded_cotangent(
+                (tcfg.height, tcfg.width, 3), 91):
+                render_bwd.render_replay_bwd(s, c, r, gg)}
+        for kind in kinds:
+            tw, h = twin[kind], held[kind]
+            print(f"K7 structure twin at {tname}, {kind} launch "
+                  f"({tw['symbol']}{'' if twin['split'] else ', K2 in one launch'}"
+                  f"): vs plain, sums within {h['rel']:.3g} of their terms' "
+                  f"magnitudes (budget 1e-5), visits exact ({h['sites']} "
+                  f"sites); sizing n_main {tw['n_main']}, n_step "
+                  f"{tw['n_step']}, slots {tw['slots']}, divs {tw['divs']}, "
+                  f"pool {tw['n_pool']}; per ray {tw['census_per_lane']} ops "
+                  f"(K2 {tw['target_per_lane']}, match "
+                  f"{tw['census_match']}), depth {tw['depth']} (K2 "
+                  f"{tw['target_depth']}), weighted depth {tw['wdepth']} (K2 "
+                  f"{tw['target_wdepth']}), slow {tw['slow_per_lane']} (K2 "
+                  f"{tw['target_slow_per_lane']}), bounce steps per ray "
+                  f"{tw['live']:.4f}", flush=True)
+        print(f"K7 at {tname}: image bit-equal to the plain version; "
+              + (f"the free twin's list ({len(parts['list'])} pixels) "
+                 f"bit-equal to K2f's" if twin["split"] else "one launch"),
+              flush=True)
 
     # 11d. the roofline's main path, counts from 0: the peak curve (every
-    # mode and K), the census probe, the twin on both records; the SM clock
-    # and the power sampled beside it
+    # mode and K), the census probe and its launch floor, the twin on every
+    # record; the SM clock and the power sampled beside it
     smi = subprocess.Popen(
         ["nvidia-smi", f"--id={DEVICE_ID}", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", "100"],
@@ -1792,17 +1825,20 @@ def main() -> None:
         t_roof = time.perf_counter()
         peaks = flops.measure_fp32_peak(iters=20, ks=peak.KS)
         peak.census_probe(xp)
+        peak.floor_launch(xp)
         for t in twins.values():
             t["twin"]["run"]()
         torch.cuda.synchronize()
         t_roof = time.perf_counter() - t_roof
-        roof_counts = (peak.LAUNCHES, peak.PROBE_LAUNCHES, bwd_twin.LAUNCHES)
+        roof_counts = (peak.LAUNCHES, peak.PROBE_LAUNCHES,
+                       peak.FLOOR_LAUNCHES, bwd_twin.FREE_LAUNCHES,
+                       bwd_twin.LAUNCHES)
     finally:
         smi.terminate()
         smi_out = smi.communicate(timeout=30)[0]
     if min(roof_counts) < 1:
         raise AssertionError(f"roofline: launches {roof_counts} (K6, census "
-                             f"probe, K7)")
+                             f"probe, launch floor, K7f, K7c)")
     samples = [[float(v) for v in line.split(",")]
                for line in smi_out.splitlines() if line.count(",") == 1]
     sm_mhz = [s[0] for s in samples]
@@ -1813,7 +1849,8 @@ def main() -> None:
              else "SM clock not sampled")
     add_peak = peaks["add"]
     print(f"roofline main path [{card}; {clock}]: launches K6 {roof_counts[0]}, "
-          f"census probe {roof_counts[1]}, K7 {roof_counts[2]}; peaks at K=16 "
+          f"census probe {roof_counts[1]}, launch floor {roof_counts[2]}, "
+          f"K7f {roof_counts[3]}, K7c {roof_counts[4]}; peaks at K=16 "
           f"(T source ops/s, FMA = 1): fma {peaks['fma'] / 1e12:.3f}, add "
           f"{add_peak / 1e12:.3f}, mix {peaks['mix'] / 1e12:.3f}, bwdmix "
           f"{peaks['bwdmix'] / 1e12:.3f}; the build is --fmad=false, so the "
@@ -1830,7 +1867,8 @@ def main() -> None:
                   f"{v['slope_ms']:.4f})", flush=True)
 
     # 11e. timings: K6's headline fma chain and its plain version, the
-    # probe, each twin beside K2 on the same record
+    # probe beside a launch that does no work, each twin launch beside its
+    # K2 launch on the same record
     x16 = torch.full(flops.PEAK_SHAPE, 0.99999, device="cuda")
     # K6's device time by CUDA events around 10 launches queued behind a
     # sleep (one launch a call; the profiler has kept as few as 4 of its 10
@@ -1840,48 +1878,86 @@ def main() -> None:
           "plain": median_ms(lambda: peak.peak_chain_plain("fma", 16, x16),
                              0, 2)}
     # the probe runs for about a microsecond, too short for the profiler to
-    # keep its records: 50 launches queued behind a sleep, CUDA events
+    # keep its records: 50 launches queued behind a sleep, CUDA events, in
+    # turns with 50 launches of the floor kernel on the same grid (no work,
+    # and only the probe's load and store), three rounds each
+    floor_runs = {"probe": [], "empty": [], "copy": []}
+    floor_fns = {"probe": lambda: peak.census_probe(xp),
+                 "empty": lambda: peak.floor_launch(xp),
+                 "copy": lambda: peak.floor_launch(xp, copy=True)}
+    for _ in range(3):
+        for name, fn in floor_fns.items():
+            floor_runs[name].append(flops.device_ms(fn, 50))
+    if not torch.equal(peak.floor_launch(xp, copy=True), xp):
+        raise AssertionError("the copy floor differs from its input")
     probe_t = {"ms": median_ms(lambda: peak.census_probe(xp), 3, 5),
-               "dev": flops.device_ms(lambda: peak.census_probe(xp), 50),
+               "dev": statistics.median(floor_runs["probe"]),
+               "empty": statistics.median(floor_runs["empty"]),
+               "copy": statistics.median(floor_runs["copy"]),
+               "runs": floor_runs,
                "plain": median_ms(lambda: peak.census_probe_plain(xp), 1, 3)}
-    k2_sass = flops.sass_census("render_bwd_kernel<false>")
+    print(f"census probe [{card}]: {probe_t['dev']:.5f} ms a launch (50 "
+          f"launches, CUDA events; rounds "
+          f"{[round(v, 5) for v in floor_runs['probe']]}) beside the launch "
+          f"floor on its grid: no work {probe_t['empty']:.5f} ms (rounds "
+          f"{[round(v, 5) for v in floor_runs['empty']]}), the probe's load "
+          f"and store alone {probe_t['copy']:.5f} ms (rounds "
+          f"{[round(v, 5) for v in floor_runs['copy']]}); probe / no work "
+          f"{probe_t['dev'] / probe_t['empty']:.3f}, probe / copy "
+          f"{probe_t['dev'] / probe_t['copy']:.3f}", flush=True)
+    k2_sass = {k: flops.sass_census(sym) for k, sym in flops.K2_OF_TWIN.items()}
     for tname, t in twins.items():
         tw, tcfg, tres = t["twin"], t["cfg"], t["res"]
         over = bench.twin_over_k2(tw["run"], t["k2"])
-        t["dev"], t["k2_dev"] = over["twin_ms"], over["k2_ms"]
+        t["over"] = over
         t["ms"] = median_ms(tw["run"], 2, 5)
         t["plain"] = median_ms(tw["run_plain"], 0, 2)
-        rays = tres.prim_id.numel()
         pix = tcfg.width * tcfg.height
-        t["work"] = (bwd_work(tcfg, cornell, tres)[0] + 12 * pix
-                     + 4 * n_obj * 17, tw["census_per_lane"] * rays)
-        t["k2_bound"] = bound(*bwd_work(tcfg, cornell, tres))
-        sass = flops.sass_census(bwd_twin.symbol(tw["n_pool"]))
-        # the step chain: the innermost loop with FP32 work that touches no
-        # memory but the constant bank
-        step_loop = next(
-            lp for lp in sass["loops"] if lp["fp32"] and all(
-                op in ("LDC", "ULDC") for op in lp["opcodes"]
-                if flops.sass_class(op) == "mem"))
-        r, kr = t["resources"], k2_res
-        print(f"K7 vs K2 at {tname} [{card}]: twin device {t['dev']:.4f} ms, "
-              f"K2 device {t['k2_dev']:.4f} ms, twin / K2 = "
-              f"{t['dev'] / t['k2_dev']:.4f}; registers twin {r['registers']} "
-              f"(pool {tw['n_pool']}, spills {r['spill_stores']}/"
-              f"{r['spill_loads']} B, stack {r['stack_bytes']} B), K2 "
-              f"{kr['registers']} (spills {kr['spill_stores']}/"
-              f"{kr['spill_loads']} B, stack {kr['stack_bytes']} B); static "
-              f"SASS fp32/int/mem/control twin {sass['fp32']}/{sass['int']}/"
-              f"{sass['mem']}/{sass['control']}, K2 {k2_sass['fp32']}/"
-              f"{k2_sass['int']}/{k2_sass['mem']}/{k2_sass['control']}; the "
-              f"twin's innermost loop (the step chain, "
-              f"{17 * bwd_twin.STEP_ACCS} source ops an iteration) holds "
-              f"{step_loop['fp32']} FP32 of {step_loop['total']} SASS "
-              f"instructions; wrapper {t['ms']:.4f} ms, plain "
-              f"{t['plain']:.2f} ms; K2 bound {t['k2_bound'][0]:.4f} ms by "
-              f"{t['k2_bound'][1]} (data sheet), "
-              f"{bound(*bwd_work(tcfg, cornell, tres), peak_fp32=add_peak)[0]:.4f}"
-              f" ms at the measured no-FMA peak", flush=True)
+        t["work"], t["k2_bound"] = {}, {}
+        for kind in t["kinds"]:
+            mask = t["pixels"][kind]
+            k2w = bwd_work(tcfg, t["scene"], tres, pixels=mask)
+            n_px = pix if mask is None else int(mask.sum())
+            rays = n_px * tcfg.aa_rays
+            t["work"][kind] = (k2w[0] + 12 * n_px + 4 * t["n_obj"] * 17,
+                               tw[kind]["census_per_lane"] * rays)
+            t["k2_bound"][kind] = bound(*k2w)
+            sass = flops.sass_census(tw[kind]["symbol"])
+            r, kr = t["resources"][kind], k2_res[kind]
+            lo = over[kind]
+            # K2c's blocks an SM from the runtime, K2f's by the occupancy
+            # rule (registers in units of 256 a warp, 1 KB of shared memory
+            # reserved a block)
+            k2f_smem = 4 * (t["n_obj"] * 17 + 21 + 4 * (t["n_obj"] * 16 + 21))
+            k2_per_sm = (render_bwd.chain_blocks_per_sm(
+                tcfg, t["scene"].num_triangles, t["scene"].num_spheres)
+                if kind == "chain" else min(
+                    65536 // (4 * -(-kr["registers"] * 32 // 256) * 256),
+                    233472 // (k2f_smem + 1024), 16))
+            print(f"K7{kind[0]} vs K2{kind[0]} at {tname} [{card}]: twin "
+                  f"device {lo['twin_ms']:.4f} ms, K2 device "
+                  f"{lo['k2_ms']:.4f} ms, twin / K2 = {lo['ratio']:.4f}; "
+                  f"registers twin {r['registers']} (pool "
+                  f"{tw[kind]['n_pool']}, spills {r['spill_stores']}/"
+                  f"{r['spill_loads']} B, stack {r['stack_bytes']} B, "
+                  f"{t['blocks_per_sm'][kind]} blocks an SM), K2 "
+                  f"{kr['registers']} (spills {kr['spill_stores']}/"
+                  f"{kr['spill_loads']} B, stack {kr['stack_bytes']} B, "
+                  f"{k2_per_sm} blocks an SM); static SASS fp32/int/mem/"
+                  f"control twin {sass['fp32']}/{sass['int']}/{sass['mem']}/"
+                  f"{sass['control']}, K2 {k2_sass[kind]['fp32']}/"
+                  f"{k2_sass[kind]['int']}/{k2_sass[kind]['mem']}/"
+                  f"{k2_sass[kind]['control']}; twin bound "
+                  f"{bound(*t['work'][kind])[0]:.4f} ms, at the measured "
+                  f"no-FMA peak {bound(*t['work'][kind], peak_fp32=add_peak)[0]:.4f}"
+                  f"; K2 bound {t['k2_bound'][kind][0]:.4f} ms by "
+                  f"{t['k2_bound'][kind][1]} (data sheet), "
+                  f"{bound(*bwd_work(tcfg, t['scene'], tres, pixels=mask), peak_fp32=add_peak)[0]:.4f}"
+                  f" ms at the measured no-FMA peak", flush=True)
+        print(f"K7 vs K2 at {tname} [{card}]: twin device "
+              f"{over['twin_ms']:.4f} ms, K2 device {over['k2_ms']:.4f} ms, "
+              f"twin / K2 = {over['ratio']:.4f}; wrapper {t['ms']:.4f} ms, "
+              f"plain {t['plain']:.2f} ms", flush=True)
 
     # --- 12. the live loop (preview.py): the headless keypress -> frame
     # bench on the card at the JAX record's configs (256x256 and 512x512,
@@ -2210,25 +2286,47 @@ def main() -> None:
               "tests/test_flops.py:19", roof_counts[1], 0.0, probe_t["ms"],
               probe_t["plain"], (8 * xp.numel(), 8 * xp.numel()),
               probe_t["dev"], at="one (8,128) tile of float32",
-              sass_fp32=probe["fp32"], sass_opcodes=probe["opcodes"]),
-        entry("K7 bwd_twin (structure twin of K2)", "bwd_twin.cu",
-              "uob_raytracer_tpu/flops.py:743", roof_counts[2],
-              twins["full_1024"]["abs"], twins["full_1024"]["ms"],
-              twins["full_1024"]["plain"], twins["full_1024"]["work"],
-              twins["full_1024"]["dev"],
-              at="full_1024 (K2's record); launches: one at each of the two "
-              "configs; max_abs_err over the summed partials",
-              twin_over_k2={n: t["dev"] / t["k2_dev"] for n, t in twins.items()},
-              k2_device_ms={n: t["k2_dev"] for n, t in twins.items()},
-              twin_device_ms={n: t["dev"] for n, t in twins.items()},
-              sums_rel_err={n: t["rel"] for n, t in twins.items()},
-              sizing={n: {f: t["twin"][f] for f in (
-                  "n_main", "n_step", "slots", "divs", "n_pool",
-                  "census_per_lane", "target_per_lane", "depth",
-                  "target_depth", "wdepth", "target_wdepth", "registers",
-                  "target_registers")} for n, t in twins.items()},
-              resources={n: t["resources"] for n, t in twins.items()},
-              k2_resources=k2_res),
+              sass_fp32=probe["fp32"], sass_opcodes=probe["opcodes"],
+              device_ms_rounds=probe_t["runs"]["probe"],
+              floor_device_ms={"no_work": probe_t["empty"],
+                               "copy": probe_t["copy"]},
+              floor_device_ms_rounds={"no_work": probe_t["runs"]["empty"],
+                                      "copy": probe_t["runs"]["copy"]},
+              floor_launches=roof_counts[2],
+              over_floor={"no_work": probe_t["dev"] / probe_t["empty"],
+                          "copy": probe_t["dev"] / probe_t["copy"]}),
+        *(entry(f"K7{kind[0]} bwd_twin_{kind}_kernel (structure twin of "
+                f"K2{kind[0]})", "bwd_twin.cu",
+                "uob_raytracer_tpu/flops.py:743", roof_counts[3 if kind ==
+                                                             "free" else 4],
+                full["held"][kind]["abs"], full["ms"], full["plain"],
+                full["work"][kind], full["over"][kind]["twin_ms"],
+                at="full_1024 (K2's record), the " + kind + " launch; ms and "
+                "plain_ms: the whole twin (both launches); launches: one at "
+                "each record K2 takes in this launch; max_abs_err over the "
+                "launch's summed partials",
+                twin_over_k2={n: t["over"][kind]["ratio"]
+                              for n, t in twins.items() if kind in t["kinds"]},
+                twin_device_ms={n: t["over"][kind]["twin_ms"]
+                                for n, t in twins.items() if kind in t["kinds"]},
+                k2_device_ms={n: t["over"][kind]["k2_ms"]
+                              for n, t in twins.items() if kind in t["kinds"]},
+                twin_over_k2_all={n: t["over"]["ratio"]
+                                  for n, t in twins.items()},
+                sums_rel_err={n: t["held"][kind]["rel"]
+                              for n, t in twins.items() if kind in t["kinds"]},
+                sizing={n: {f: t["twin"][kind][f] for f in (
+                    "n_main", "n_step", "slots", "divs", "n_pool",
+                    "census_per_lane", "target_per_lane", "census_match",
+                    "depth", "target_depth", "wdepth", "target_wdepth",
+                    "live", "registers", "target_registers")}
+                    for n, t in twins.items() if kind in t["kinds"]},
+                resources={n: t["resources"][kind]
+                           for n, t in twins.items() if kind in t["kinds"]},
+                blocks_per_sm={n: t["blocks_per_sm"][kind]
+                               for n, t in twins.items() if kind in t["kinds"]},
+                k2_resources=k2_res[kind])
+          for kind in ("free", "chain") for full in (twins["full_1024"],)),
     ]
     for k in kernels:
         print(f"bound of {k['name']}: device {k['device_ms']:.4f} ms; "

@@ -4,6 +4,7 @@
     python3 chip_timing.py --split [k1|k2k5|k3b|k2c|all] [--tag NAME] [--out FILE]
     python3 chip_timing.py --k3b-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --k2c-ms [--tag NAME] [--out FILE]
+    python3 chip_timing.py --k7 [--tag NAME] [--out FILE]
     python3 chip_timing.py --compare A.npz B.npz
     python3 chip_timing.py --sass A.so B.so
 
@@ -25,7 +26,7 @@ full_1024; the mirror boxes past 16 bounces):
   backward (K3b) at dense_8192 and its deep instance on the 600-triangle
   mirror box at 256x256; each as the kernels' device time and as every
   device kernel of one backward call;
-- K7, the structure twin of K2, at full_1024;
+- K7, the structure twin of K2, at full_1024 (both its launches);
 - the partial-scan kernels K4 (nearest hit) and K5 (occlusion) on the ray
   batches of the dense_8192 frame through the kernel route;
 - the segmented sum: its wrapper (CUDA events), and within one call each
@@ -48,11 +49,15 @@ Its K1 part (``--split k1``), at the headline and at full_1024, as
 spills, the blocks an SM holds and the waves of the grid, and K1's device
 time at the config, with 1 shadow sample and with no bounce (what the
 shadow pass and the bounce loop take). Its K2 and K5 part (``--split
-k2k5``): K7 beside its split instances (no warp shuffles; no chain
-storage and no bounce sweeps; ptxas held to 4 and to 5 blocks an SM),
-each with its ptxas registers, beside K2, and the record's chain share
-and scatter shuffles (``flops.chain_share``, ``flops.scatter_work``) at
-full_1024; and on the three occlusion batches, each ray's first occluding
+k2k5``), on full_1024 and on the headline (``twin_split``): K2's two
+launches beside their twins (the free twin over K2f, the chain twin over
+K2c) and the chain twin's split instances on the chain launch (no warp
+shuffles in the scatter and the camera sums; no chain storage, every step
+in one slot; no binary search, the listed pixels read from a compacted
+array; ptxas held to 4 blocks an SM), each with its ptxas registers,
+spills and stack and its blocks an SM (null in a checkout whose twin is
+one launch), and the record's chain share and scatter shuffles
+(``flops.chain_share``, ``flops.scatter_work``) at full_1024; and on the three occlusion batches, each ray's first occluding
 row (``flops.first_occluder``), the lane-rows a thread per ray uses
 (``flops.occluded_lanes``) and K5's device time beside K4's on the same
 rays. Its K3b part (``--split k3b``), for both instances of the streamed
@@ -92,6 +97,11 @@ the reverse sweeps against the steps the rays need. ``--split`` alone runs
 every part.
 
 ``--k2c-ms`` times K2's chain kernel alone on the split's frames.
+``--k7`` times K7 beside K2 (``k7_frames``: full_1024, the headline,
+mirror_512): every device kernel of one twin run and of one backward,
+and, in a checkout whose twin mirrors K2 launch for launch, each twin
+launch over its K2 launch with its sizing, registers and blocks an SM; it
+runs in an older checkout too (its one-launch twin against all of K2).
 ``--k3b-ms`` times K3b alone (device ms of its kernel in one backward call)
 on the split's two configs and on the same two scenes at 512x512 (2,048
 blocks of one thread per AA ray, where the card holds several waves).
@@ -271,13 +281,70 @@ def backward_times(out: dict, key: str, fn, names, n: int = 10) -> None:
     out[f"{key}_all_device_ms"] = sum(k.values())
 
 
-def twin_full_1024(cornell, res):
-    """K7 sized to K2 on the full_1024 record (as ``chip_smoke.py``)."""
-    cfg = RenderConfig()
+def twin_for(scene, cfg, res):
+    """K7 sized to K2 on this record (as ``chip_smoke.py``): launch for
+    launch, each twin to its own K2 launch, where the checkout's twin
+    mirrors K2's split (``flops.size_bwd_twin``); else the one-launch twin
+    sized to K2's chain kernel."""
+    if hasattr(flops, "size_bwd_twin"):
+        return flops.build_bwd_structure_twin(scene, cfg, res)
     k2 = flops.kernel_resources("render_bwd_kernel<false>")
-    targets = flops.bwd_twin_targets(cornell, cfg, res)
-    return flops.build_bwd_structure_twin(cornell, cfg, res, **targets,
+    targets = flops.bwd_twin_targets(scene, cfg, res)
+    return flops.build_bwd_structure_twin(scene, cfg, res, **targets,
                                           target_registers=k2["registers"])
+
+
+def k7_frames():
+    """The records K7 is timed on beside K2: full_1024 and the headline
+    (K2 split into its chain-free and chain launches), mirror_512 (one
+    launch), each with the seed of K2's image cotangent."""
+    return (("full_1024", RenderConfig(), 11), ("headline_512", HEADLINE, 12),
+            ("mirror_512", baseline_configs()["mirror_512"], 81))
+
+
+def k7_pass(out: dict) -> None:
+    """K7 beside K2 on ``k7_frames``: every device kernel of one twin run
+    and of one K2 backward, their sums and ratio, and, where the twin
+    mirrors K2 launch for launch, each twin launch over its K2 launch with
+    its sizing, registers and blocks an SM."""
+    cornell = rt.cornell_box()
+    n_obj = cornell.num_triangles + cornell.num_spheres
+    rows = {}
+    for name, cfg, seed in k7_frames():
+        res = render_fwd.render_fused_res(cornell, cfg, quads=None)[2]
+        g = seeded((cfg.height, cfg.width, 3), seed)
+        twin = twin_for(cornell, cfg, res)
+        tk = device_kernels(twin["run"])
+        kk = device_kernels(lambda: render_bwd.render_replay_bwd(
+            cornell, cfg, res, g))
+        row = {"twin_kernels_ms": {k: v for k, v in tk.items()
+                                   if "bwd_twin" in k},
+               "k2_kernels_ms": {k: v for k, v in kk.items()
+                                 if any(n in k for n in K2_NAMES)},
+               "twin_ms": kernel_ms(tk, "bwd_twin"),
+               "k2_ms": kernel_ms(kk, *K2_NAMES)}
+        row["ratio"] = row["twin_ms"] / row["k2_ms"]
+        if "chain" in twin:
+            row["split"] = twin["split"]
+            for kind, k2_name in (("chain", "render_bwd_kernel"),
+                                  ("free", "render_bwd_free_kernel")):
+                if twin[kind] is None:
+                    continue
+                t_ms = kernel_ms(tk, f"bwd_twin_{kind}_kernel")
+                k_ms = kernel_ms(kk, k2_name)
+                row[kind] = {
+                    "twin_ms": t_ms, "k2_ms": k_ms, "ratio": t_ms / k_ms,
+                    **{f: twin[kind][f] for f in (
+                        "n_main", "n_step", "slots", "n_pool", "census_match",
+                        "depth_match", "live", "registers",
+                        "target_registers")},
+                    "resources": flops.kernel_resources(twin[kind]["symbol"]),
+                    "blocks_per_sm": bwd_twin.blocks_per_sm(
+                        kind, twin[kind]["n_pool"], cfg, n_obj)}
+        else:
+            row["n_pool"], row["registers"] = twin["n_pool"], twin["registers"]
+        rows[name] = row
+    out["k7"] = rows
 
 
 def k1_frames():
@@ -359,36 +426,149 @@ def k1_split(out: dict) -> None:
     out["k1_split"] = rows
 
 
+def resized(sizing: dict, n_main: int | None = None,
+            divides: bool = True) -> dict:
+    """A twin sizing with its slot-iterations spread over ``n_main``
+    iterations (``flops._twin_slots``) and its divides kept in number
+    (slot 0's on the path first, one an iteration, then the other slots in
+    turn) or, without ``divides``, dropped."""
+    n = sizing["n_main"] if n_main is None else n_main
+    slots = flops._twin_slots(sum(sizing["slots"]), n)
+    divs = [set() for _ in range(n)]
+    if divides:
+        on_path = min(sum(1 for d in sizing["divs"] if 0 in d), n)
+        for i in range(on_path):
+            divs[(i * n) // on_path].add(0)
+        left = sum(len(d) for d in sizing["divs"]) - on_path
+        it = 0
+        while left > 0 and it <= 4 * n:
+            for s_ in range(1, slots[it % n]):
+                if left > 0 and s_ not in divs[it % n]:
+                    divs[it % n].add(s_)
+                    left -= 1
+            it += 1
+    return dict(sizing, n_main=n, slots=slots,
+                divs=[sorted(d) for d in divs])
+
+
+def structure_only(sizing: dict) -> dict:
+    """A twin sizing with no calibration chain: no slot, no step-chain
+    iteration, no pool; what is left is the twin's structure (the record's
+    reads, the row gathers, the sweeps, the scatters, the camera and image
+    sums)."""
+    n = sizing["n_main"]
+    return dict(sizing, slots=[0] * n, divs=[[] for _ in range(n)],
+                n_step=0, n_pool=0)
+
+
+def twin_split(scene, cfg, res, g) -> dict:
+    """K2's launches beside their twins on a record K2 splits, and the
+    chain twin's split instances (``bwd_twin.SPLITS``: no shuffles, no
+    chain storage, no binary search, 4 blocks an SM) on the chain launch,
+    each with its device ms, ptxas registers, spills and stack, and blocks
+    an SM (the runtime's count for K2c and the twins, the occupancy rule
+    for K2f and the split instances). The instances share the pool
+    SPLIT_POOL; where the chain twin took another, the chain twin at that
+    pool is timed beside them too, and each twin with its calibration
+    chains cut (``structure_only``). Beside them the free twin with its
+    sizing changed one piece at a time (``resized``: no pool, no divides,
+    its slot-iterations over 2, 3 or 6 main iterations)."""
+    n_obj = scene.num_triangles + scene.num_spheres
+    twin = flops.build_bwd_structure_twin(scene, cfg, res)
+    if not twin["split"]:
+        raise AssertionError(f"twin_split: K2 takes {cfg} in one launch")
+    table = bwd_twin.twin_table(scene, cfg)
+    g_t = torch.full((cfg.height, cfg.width, 3), 1e-3, device="cuda")
+    k2k = device_kernels(lambda: render_bwd.render_replay_bwd(
+        scene, cfg, res, g))
+    smem = {"free": 4 * (n_obj * 17 + 21 + 4 * (n_obj * 16 + 21)),
+            "chain": render_fwd.bwd_shared_bytes(n_obj, cfg.aa_rays)}
+
+    def row(ms, symbol, per_sm=None, kind="chain"):
+        r = flops.kernel_resources(symbol)
+        return {"ms": ms, "symbol": symbol, "registers": r["registers"],
+                "spill_stores": r["spill_stores"],
+                "spill_loads": r["spill_loads"],
+                "stack_bytes": r["stack_bytes"],
+                "blocks_per_sm": per_sm or blocks_per_sm_formula(
+                    r["registers"], smem[kind])}
+
+    tk = device_kernels(twin["run"])
+    rows = {
+        "K2c": row(kernel_ms(k2k, "render_bwd_kernel"),
+                   "render_bwd_kernel<false>", render_bwd.chain_blocks_per_sm(
+                       cfg, scene.num_triangles, scene.num_spheres)),
+        "K2f": row(kernel_ms(k2k, "render_bwd_free_kernel"),
+                   render_bwd.FREE_SYMBOL, kind="free")}
+    for kind in ("chain", "free"):
+        rows[f"K7{kind[0]}"] = row(
+            kernel_ms(tk, f"bwd_twin_{kind}_kernel"), twin[kind]["symbol"],
+            bwd_twin.blocks_per_sm(kind, twin[kind]["n_pool"], cfg, n_obj),
+            kind)
+    rows["K7c structure only"] = row(kernel_ms(device_kernels(
+        lambda: bwd_twin.bwd_twin(table, g_t, res, cfg,
+                                  structure_only(twin["chain"]),
+                                  twin["free"])), "bwd_twin_chain_kernel"),
+        bwd_twin.symbol(0), bwd_twin.blocks_per_sm("chain", 0, cfg, n_obj))
+    chain = dict(twin["chain"], n_pool=bwd_twin.SPLIT_POOL)
+    if twin["chain"]["n_pool"] != bwd_twin.SPLIT_POOL:
+        rows[f"K7c pool {bwd_twin.SPLIT_POOL}"] = row(kernel_ms(
+            device_kernels(lambda: bwd_twin.bwd_twin(
+                table, g_t, res, cfg, chain, twin["free"])),
+            "bwd_twin_chain_kernel"), bwd_twin.symbol(bwd_twin.SPLIT_POOL),
+            bwd_twin.blocks_per_sm("chain", bwd_twin.SPLIT_POOL, cfg, n_obj))
+    for name, (_, symbol) in bwd_twin.SPLITS.items():
+        def run(s=name):
+            return bwd_twin.bwd_twin(table, g_t, res, cfg, chain, twin["free"],
+                                     _split=s)
+        sums, _ = run()
+        if not torch.isfinite(sums).all():
+            raise AssertionError(f"K7 split {name}: sums not finite")
+        rows[f"K7c {name}"] = row(
+            kernel_ms(device_kernels(run), "bwd_twin_split_kernel"), symbol)
+    for name, r in rows.items():
+        other = {"K7c": "K2c", "K7f": "K2f"}.get(name)
+        if other:
+            r["over_k2"] = r["ms"] / rows[other]["ms"]
+    # what sets the free twin's time: its sizing changed one piece at a
+    # time, the same slot-iterations (operations) each
+    free = twin["free"]
+    variants = {"as_sized": free, "pool_0": dict(free, n_pool=0),
+                "no_divides": resized(free, divides=False),
+                "structure_only": structure_only(free)}
+    for n in (2, 3, 6):
+        if n != free["n_main"] and sum(free["slots"]) <= n * bwd_twin.MAX_SLOTS:
+            variants[f"n_main_{n}"] = resized(free, n_main=n)
+    free_variants = {}
+    for name, sz in variants.items():
+        ms = kernel_ms(device_kernels(lambda z=sz: bwd_twin.bwd_twin(
+            table, g_t, res, cfg, twin["chain"], z)), "bwd_twin_free_kernel")
+        free_variants[name] = {
+            "ms": ms, "n_main": sz["n_main"], "slots": sz["slots"],
+            "divs": sz["divs"], "n_pool": sz["n_pool"],
+            "depth": flops.twin_depth_per_ray(sz["n_main"], sz["n_step"], 0.0),
+            "ops": flops.twin_ops_per_ray(sz["n_step"], sz["slots"],
+                                          sz["n_pool"], 0.0, cfg.aa_rays)}
+    return {"rows": rows, "free_variants": free_variants,
+            "listed_pixels": int(bwd_twin.chain_pixels(
+        table, res, cfg).sum()), "sizing": {
+            k: {f: twin[k][f] for f in ("n_main", "n_step", "slots", "n_pool",
+                                        "census_match", "depth_match", "live")}
+            for k in ("free", "chain")}}
+
+
 def split_pass(out: dict) -> None:
     """What sets the gaps of K2 and K5 (see the module docstring)."""
     cornell = rt.cornell_box()
     cfg = RenderConfig()
     res = render_fwd.render_fused_res(cornell, cfg, quads=None)[2]
     g = seeded((1024, 1024, 3), 11)
-    twin = twin_full_1024(cornell, res)
-    if twin["n_pool"] != bwd_twin.SPLIT_POOL:
-        raise AssertionError(f"K7 took pool {twin['n_pool']}; the split "
-                             f"instances are built for {bwd_twin.SPLIT_POOL}")
-    table = bwd_twin.twin_table(cornell, cfg)
-    g_t = torch.full((1024, 1024, 3), 1e-3, device="cuda")
-    sizing = {f: twin[f] for f in ("n_main", "n_step", "slots", "divs",
-                                   "n_pool")}
-    k2 = {"ms": kernel_ms(device_kernels(lambda: render_bwd.render_replay_bwd(
-        cornell, cfg, res, g)), *K2_NAMES),
-          **flops.kernel_resources("render_bwd_kernel<false>")}
-    rows = {"K2": k2, "K7": {
-        "ms": kernel_ms(device_kernels(twin["run"]), "bwd_twin_kernel"),
-        **flops.kernel_resources(bwd_twin.symbol(twin["n_pool"]))}}
-    for name, (_, symbol) in bwd_twin.SPLITS.items():
-        def run(s=name):
-            return bwd_twin.bwd_twin(table, g_t, res, cfg, sizing, _split=s)
-        sums, _ = run()
-        if not torch.isfinite(sums).all():
-            raise AssertionError(f"K7 split {name}: sums not finite")
-        rows[f"K7 {name}"] = {
-            "ms": kernel_ms(device_kernels(run), "bwd_twin_split_kernel"),
-            **flops.kernel_resources(symbol)}
-    out["k2_split"] = rows
+    out["k2_split"] = (twin_split(cornell, cfg, res, g)
+                       if hasattr(flops, "size_bwd_twin") else None)
+    res_h = render_fwd.render_fused_res(cornell, HEADLINE, quads=None)[2]
+    out["k2_split_headline"] = (
+        twin_split(cornell, HEADLINE, res_h, seeded((512, 512, 3), 12))
+        if hasattr(flops, "size_bwd_twin") else None)
     out["chain_share"] = flops.chain_share(cornell, cfg, res)
     out["scatter_work"] = {s: flops.scatter_work(cornell, cfg, res, s)
                            for s in ("pr6", "pr7")}
@@ -886,10 +1066,11 @@ def default_pass(out: dict, npz: str | None) -> None:
     save_backward(saved, "k3b_mirror_600", m600, cfg_m6, res_m6, g_m6)
     bwd_routing(out)
 
-    twin = twin_full_1024(cornell, res)
+    twin = twin_for(cornell, cfg, res)
     out["k7_full_1024_ms"] = kernel_ms(device_kernels(twin["run"]),
-                                       "bwd_twin_kernel")
-    out["k7_pool"] = twin["n_pool"]
+                                       "bwd_twin")
+    out["k7_pool"] = ({k: twin[k]["n_pool"] for k in ("free", "chain")
+                       if twin[k]} if "chain" in twin else twin["n_pool"])
     out["k2_resources"] = flops.kernel_resources("render_bwd_kernel<false>")
     if npz:
         os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
@@ -960,6 +1141,7 @@ def main() -> None:
                     choices=("k1", "k2k5", "k3b", "k2c", "all"))
     ap.add_argument("--k3b-ms", action="store_true")
     ap.add_argument("--k2c-ms", action="store_true")
+    ap.add_argument("--k7", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
     ap.add_argument("--sass", nargs=2, metavar="LIB", default=None)
     args = ap.parse_args()
@@ -978,11 +1160,14 @@ def main() -> None:
         out = {"tag": args.tag, "card": card, "source": ROOT,
                "pass": (f"split {args.split}" if args.split
                         else "k3b" if args.k3b_ms
-                        else "k2c" if args.k2c_ms else "default")}
+                        else "k2c" if args.k2c_ms
+                        else "k7" if args.k7 else "default")}
         if args.k3b_ms:
             out["k3b_ms"] = k3b_ms()
         if args.k2c_ms:
             out["k2c_ms"] = k2c_ms()
+        if args.k7:
+            k7_pass(out)
         if args.split in ("k1", "all"):
             k1_split(out)
         if args.split in ("k2k5", "all"):
@@ -991,7 +1176,7 @@ def main() -> None:
             k3b_split(out)
         if args.split in ("k2c", "all"):
             k2c_split(out)
-        if not (args.split or args.k3b_ms or args.k2c_ms):
+        if not (args.split or args.k3b_ms or args.k2c_ms or args.k7):
             default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:

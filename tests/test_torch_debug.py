@@ -128,7 +128,7 @@ def test_launch_list_covers_every_counter():
         m = importlib.import_module(f"uob_raytracer_tpu_torch.kernels.{mod}")
         names |= {(mod, k) for k, v in vars(m).items()
                   if k.endswith("LAUNCHES") and isinstance(v, int)}
-    assert len(names) == 11 == len(debug.launch_counts())
+    assert len(names) == 13 == len(debug.launch_counts())
     counts = debug.launch_all("cpu", size=8)
     assert counts == {k: 0 for k in debug.launch_counts()}
 

@@ -13,8 +13,10 @@ and its plain version visits every object exactly as often as the JAX
 package's decision record says. Tests marked ``cuda`` launch the kernels
 and skip without a card: K6 against its plain version (bit-equal; fma
 within 1 ulp), the census probe's SASS against the JAX census of the same
-body, K7 against its plain version (sums within 1e-5 of the sum of the
-terms' magnitudes, visits exact).
+body, K7 against its plain version launch by launch, in one launch and
+split as K2 splits (sums within 1e-5 of the sum of the terms' magnitudes,
+visits exact, the image bit-equal; the free twin's list K2f's). The
+split twin's own CPU tests are ``tests/test_torch_k7.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,7 @@ from uob_raytracer_tpu import flops as jflops
 from uob_raytracer_tpu.kernels.render_fwd import render_fused_res as j_render_res
 import uob_raytracer_tpu_torch as trt
 from uob_raytracer_tpu_torch import flops
-from uob_raytracer_tpu_torch.kernels import bwd_twin, peak
+from uob_raytracer_tpu_torch.kernels import bwd_twin, peak, render_bwd
 from uob_raytracer_tpu_torch.ops.replay import Residuals, residuals_from_numpy
 
 F = np.float32
@@ -240,8 +242,11 @@ def test_sass_parser_counts_classes_and_loops():
     ("render_bwd_kernel", "17render_bwd_kernelE"),
     ("render_bwd_kernel<false>", "17render_bwd_kernelILb0EE"),
     ("peak_chain<2, 16>", "10peak_chainILi2ELi16EE"),
-    (bwd_twin.symbol(64), "15bwd_twin_kernelILi64EE"),
+    ("bwd_twin_kernel<64>", "15bwd_twin_kernelILi64EE"),
     (peak.symbol("bwdmix", 32), "10peak_chainILi3ELi32EE"),
+    (bwd_twin.symbol(64), "21bwd_twin_chain_kernelILi64EE"),
+    (bwd_twin.symbol(16, "free"), "20bwd_twin_free_kernelILi16EE"),
+    (bwd_twin.SPLITS["no_search"][1], "21bwd_twin_split_kernelILi3ELi3EE"),
 ])
 def test_mangled_fragment(name, frag):
     assert flops.mangled_fragment(name) == frag
@@ -616,20 +621,40 @@ def test_census_probe_on_card(cuda_device, cornell):
 
 
 @pytest.mark.cuda
-def test_structure_twin_on_card(cuda_device, twin_case):
+def test_structure_twin_on_card(cuda_device, twin_case, monkeypatch):
+    """K7 on the JAX test's twin record, each launch sized to K2's own
+    registers: in one launch (the chain twin over every pixel), then split
+    as K2 splits (``SPLIT_RAYS`` 0): each launch's sums within 1e-5 of the
+    sum of its terms' magnitudes, visits exact, the image bit-equal to the
+    plain version, and the free twin's list bit-equal to K2f's."""
     scene, cfg, res, arrays = twin_case
     scene = trt.cornell_box(device=cuda_device)
     res = residuals_from_numpy(*arrays, device=cuda_device)
-    targets = flops.bwd_twin_targets(scene, cfg, res)
-    k2 = flops.kernel_resources("render_bwd_kernel<false>")["registers"]
-    twin = flops.build_bwd_structure_twin(scene, cfg, res, **targets,
-                                          target_registers=k2)
-    sums, img = twin["run"]()
-    ref = twin["run_plain"]()
-    err = ((sums.double() - ref["sums"]).abs()
-           / ref["abs_sums"].clamp(min=1e-30)).max().item()
-    assert err <= 1e-5
     n_obj = scene.num_triangles + scene.num_spheres
-    visits = sums[:n_obj * 16].reshape(n_obj, 16)[:, 15].round().long()
-    assert torch.equal(visits, ref["visits"])
-    assert torch.allclose(img, ref["img"], rtol=1e-6, atol=0)
+
+    def hold(sums, ref):
+        err = ((sums.double() - ref["sums"]).abs()
+               / ref["abs_sums"].clamp(min=1e-30)).max().item()
+        assert err <= 1e-5
+        visits = sums[:n_obj * 16].reshape(n_obj, 16)[:, 15].round().long()
+        assert torch.equal(visits, ref["visits"])
+
+    for split in (False, True):
+        if split:
+            monkeypatch.setattr(render_bwd, "SPLIT_RAYS", 0)
+        twin = flops.build_bwd_structure_twin(scene, cfg, res)
+        assert twin["split"] == split
+        before = (bwd_twin.LAUNCHES, bwd_twin.FREE_LAUNCHES)
+        parts, img = twin["run"](parts=True)
+        torch.cuda.synchronize()
+        assert (bwd_twin.LAUNCHES - before[0],
+                bwd_twin.FREE_LAUNCHES - before[1]) == (1, int(split))
+        ref = twin["run_plain"]()
+        assert torch.equal(img, ref["img"])
+        for kind, v in ref["launches"].items():
+            hold(parts[kind], v)
+        sums, _ = twin["run"]()
+        hold(sums, ref)
+        if split:
+            assert torch.equal(parts["list"],
+                               bwd_twin.k2_free_list(scene, cfg, res))

@@ -48,7 +48,7 @@ import torch
 from . import flops
 from .config import RenderConfig, baseline_configs
 from .debug import dense_scene
-from .kernels import partial, render_bwd, render_fwd
+from .kernels import bwd_twin, partial, render_bwd, render_fwd
 from .kernels.render_fwd import _pick_chunk_rows, render_flat
 from .ops.camera import gen_primary_rays
 from .ops.intersect import intersect, prepare_scene
@@ -445,11 +445,26 @@ def host_syncs(fn) -> dict:
 
 
 def twin_over_k2(twin_run, k2_fn) -> dict:
-    """K7's device time over K2's on the same record: the twin's one
-    launch, and both of K2's launches where the frame is split."""
-    twin_ms = kernel_device_ms(twin_run, "bwd_twin_kernel")
-    k2_ms = sum(k2_device_ms(k2_fn))
-    return {"twin_ms": twin_ms, "k2_ms": k2_ms, "ratio": twin_ms / k2_ms}
+    """K7's device time over K2's on the same record, launch by launch:
+    {"twin_ms", "k2_ms", "ratio"} of both kernels of each side summed by
+    name, and the same for "chain" (the chain twin over K2's chain launch,
+    or over its one launch) and "free" (the free twin over K2's chain-free
+    launch, None where the frame is not split)."""
+    before = bwd_twin.FREE_LAUNCHES
+    twin_run()
+    torch.cuda.synchronize()
+    split = bwd_twin.FREE_LAUNCHES > before
+    twin = {"chain": kernel_device_ms(twin_run, "bwd_twin_chain_kernel"),
+            "free": (kernel_device_ms(twin_run, "bwd_twin_free_kernel")
+                     if split else 0.0)}
+    k2 = dict(zip(("chain", "free"), k2_device_ms(k2_fn)))
+    out = {kind: {"twin_ms": twin[kind], "k2_ms": k2[kind],
+                  "ratio": twin[kind] / k2[kind]}
+           for kind in ("chain", "free") if kind == "chain" or split}
+    out.setdefault("free", None)
+    out["twin_ms"], out["k2_ms"] = sum(twin.values()), sum(k2.values())
+    out["ratio"] = out["twin_ms"] / out["k2_ms"]
+    return out
 
 
 def card(device: torch.device) -> str:
@@ -721,9 +736,7 @@ def bench_roofline(scene: Scene, iters: int) -> dict:
                           add_peak)
     k2_row["chain_ms"], k2_row["free_ms"] = k2_chain, k2_free
     k2_res = flops.kernel_resources("render_bwd_kernel<false>")
-    twin = flops.build_bwd_structure_twin(
-        scene, cfg, res, **flops.bwd_twin_targets(scene, cfg, res),
-        target_registers=k2_res["registers"])
+    twin = flops.build_bwd_structure_twin(scene, cfg, res)
     t_over = twin_over_k2(twin["run"], k2)
 
     def census(kernel):
@@ -749,9 +762,10 @@ def bench_roofline(scene: Scene, iters: int) -> dict:
                             census(render_bwd.FREE_SYMBOL)},
         "resources": {"K1": flops.kernel_resources("render_fwd_kernel"),
                       "K2": k2_res},
-        "structure_twin": {**t_over, "n_pool": twin["n_pool"],
-                           "census_match": twin["census_match"],
-                           "depth_match": twin["depth_match"]},
+        "structure_twin": {**t_over, "split": twin["split"], "launches": {
+            kind: {f: twin[kind][f] for f in (
+                "n_pool", "registers", "census_match", "depth_match",
+                "live")} for kind in ("free", "chain") if twin[kind]}},
         "method": "device times from torch.profiler (K1: 10 launches of "
                   "render_fused_raw with the quads; K2: both launches of "
                   "render_replay_bwd on the frame's record); bounds: the "
@@ -765,7 +779,9 @@ def bench_roofline(scene: Scene, iters: int) -> dict:
           f"ops -> {k1['fp32_utilization_measured_peak']:.1%} of the measured "
           f"no-FMA peak ({add_peak / 1e12:.2f} T/s); K2 {k2_row['device_ms']:.4f}"
           f" ms ({k2_row['share_measured_peak']:.1%}); twin / K2 "
-          f"{t_over['ratio']:.4f}", file=sys.stderr, flush=True)
+          f"{t_over['ratio']:.4f} (chain {t_over['chain']['ratio']:.4f}"
+          + (f", free {t_over['free']['ratio']:.4f}" if t_over["free"]
+             else "") + ")", file=sys.stderr, flush=True)
     return out
 
 

@@ -31,6 +31,11 @@
 // test_census_counts_known_kernel: y = x, then five y = y * x and three
 // y = y + x. Its SASS must hold 5 FMUL and 3 FADD: the 8 operations per
 // element that the JAX package's jaxpr census counts for the same body.
+//
+// floor_kernel<Copy> is the launch floor the probe's time is held
+// against, on the probe's grid: with Copy false it does nothing, with Copy
+// true it only copies x to out (the probe's load and store without its 8
+// operations).
 
 #include <cmath>
 #include <cuda_runtime.h>
@@ -138,6 +143,17 @@ __global__ void __launch_bounds__(kPeakThreads)
   out[i] = y;
 }
 
+// A launch that does no work (Copy false) or only the probe's load and
+// store (Copy true), on the census probe's grid.
+template <bool Copy>
+__global__ void __launch_bounds__(kPeakThreads)
+    floor_kernel(const float* __restrict__ x_in, float* __restrict__ out, int n) {
+  if constexpr (Copy) {
+    const int i = blockIdx.x * kPeakThreads + threadIdx.x;
+    if (i < n) out[i] = x_in[i];
+  }
+}
+
 using PeakFn = void (*)(const float*, float*, int);
 
 template <int Mode>
@@ -178,5 +194,17 @@ extern "C" int census_probe_launch(const float* x, float* out, int n, void* stre
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + kPeakThreads - 1) / kPeakThreads);
   census_probe_kernel<<<blocks, kPeakThreads, 0, (cudaStream_t)stream>>>(x, out, n);
+  return (int)cudaGetLastError();
+}
+
+// One launch of floor_kernel<copy> over x[n] (into out[n] when copy) on
+// the grid census_probe_launch takes for n elements, on `stream`.
+extern "C" int floor_launch(int copy, const float* x, float* out, int n, void* stream) {
+  if (n == 0) return 0;
+  const unsigned blocks = (unsigned)((n + kPeakThreads - 1) / kPeakThreads);
+  if (copy)
+    floor_kernel<true><<<blocks, kPeakThreads, 0, (cudaStream_t)stream>>>(x, out, n);
+  else
+    floor_kernel<false><<<blocks, kPeakThreads, 0, (cudaStream_t)stream>>>(x, out, n);
   return (int)cudaGetLastError();
 }

@@ -148,7 +148,9 @@ def launch_counts() -> dict[str, int]:
         "K5 occluded_tris_kernel": partial.OCCLUDED_LAUNCHES,
         "K6 peak_chain": peak.LAUNCHES,
         "census_probe_kernel": peak.PROBE_LAUNCHES,
-        "K7 bwd_twin": bwd_twin.LAUNCHES,
+        "floor_kernel (the launch floor)": peak.FLOOR_LAUNCHES,
+        "K7f bwd_twin_free_kernel": bwd_twin.FREE_LAUNCHES,
+        "K7c bwd_twin_chain_kernel": bwd_twin.LAUNCHES,
     }
 
 
@@ -174,7 +176,9 @@ def launch_all(device="cuda", size: int = 64) -> dict[str, int]:
       instance (the 600-triangle mirror box) and the segmented sum's two
       kernels on the 600-triangle scene;
     - K4 and K5 on that scene's 600 triangles as one shard;
-    - K6 at K=16, the census probe, and K7 on a 1-bounce record.
+    - K6 at K=16, the census probe, the launch floor, and K7 on a
+      1-bounce record, in one launch and split (free and chain twins,
+      ``SPLIT_RAYS = 0``).
     """
     from . import RenderConfig, cornell_box
     from . import flops
@@ -227,12 +231,17 @@ def launch_all(device="cuda", size: int = 64) -> dict[str, int]:
     x = torch.linspace(0.5, 1.5, 128 * 128, device=device)
     peak.peak_chain("fma", 16, x)
     peak.census_probe(x[:8 * 128])
+    peak.floor_launch(x[:8 * 128])
     roof = dataclasses.replace(cfg, bounces=1)
     res = render_fwd.render_fused_res(cornell, roof)[2]
-    twin = flops.build_bwd_structure_twin(
-        cornell, roof, res, **flops.bwd_twin_targets(cornell, roof, res),
-        target_registers=0)
-    twin["run"]()
+    flops.build_bwd_structure_twin(cornell, roof, res,
+                                   target_registers=0)["run"]()
+    render_bwd.SPLIT_RAYS = 0
+    try:
+        flops.build_bwd_structure_twin(cornell, roof, res,
+                                       target_registers=0)["run"]()
+    finally:
+        render_bwd.SPLIT_RAYS = split_rays
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     after = launch_counts()
@@ -248,7 +257,7 @@ SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 # these and lets torch's own kernels run unchecked
 KERNEL_SUBSTRINGS = ("render_fwd", "render_bwd", "segment_sum",
                      "nearest_tris", "occluded_tris", "peak_chain",
-                     "census_probe", "bwd_twin")
+                     "census_probe", "floor_kernel", "bwd_twin")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -33,9 +33,10 @@ The instruments, the counterparts of the JAX package's roofline machinery:
   ``census_occupancy``, which read JAX IR and have no port. The critical
   path stays an input of the twin, as in the JAX package.
 * ``build_bwd_structure_twin`` sizes K7 (``kernels/bwd_twin.py``,
-  ``csrc/bwd_twin.cu``), the structure twin of the backward kernel K2, to
-  K2's own operation count, dependency depth and registers, with the
-  operation counts of the twin's body stated analytically
+  ``csrc/bwd_twin.cu``), the structure twin of the backward kernel K2,
+  launch for launch (K2's chain-free launch and its chain launch, by K2's
+  own rule), each to that launch's operation count, dependency depth and
+  registers, with the operation counts of the twin's body stated analytically
   (``twin_ops_per_ray``, ``twin_depth_per_ray``) and checked against its
   SASS on the card.
 """
@@ -215,6 +216,14 @@ def fwd_work(cfg, scene, quads, res: Residuals, record: bool,
     return nbytes, ops
 
 
+def pixels_of(res: Residuals, pixels) -> Residuals:
+    """The record of the pixels of ``pixels`` (bool [rows * W]) only, each
+    array's pixel axes flattened: what one launch of K2's split runs."""
+    keep = pixels.reshape(-1).to(res.prim_id.device)
+    return Residuals(*(t.reshape(*t.shape[:-2], -1)[..., keep]
+                       if t.numel() else t for t in res))
+
+
 def bwd_work(cfg, scene, res: Residuals, streamed: bool = False,
              pixels=None):
     """(bytes, operations) of one backward pass: the primary id, the lit
@@ -232,9 +241,7 @@ def bwd_work(cfg, scene, res: Residuals, streamed: bool = False,
     n_tri = scene.num_triangles
     n_sph = 0 if cfg.cpu_ref else scene.num_spheres
     if pixels is not None:
-        keep = pixels.reshape(-1).to(res.prim_id.device)
-        res = Residuals(*(t.reshape(*t.shape[:-2], -1)[..., keep]
-                          if t.numel() else t for t in res))
+        res = pixels_of(res, pixels)
     rays = res.prim_id.numel()
     steps = int((res.bounce_id >= 0).sum())
     chains = int((res.bounce_id[0] >= 0).sum()) if cfg.bounces else 0
@@ -797,14 +804,18 @@ def chain_steps(scene, cfg: RenderConfig, res: Residuals) -> int:
 
 
 def bwd_twin_targets(scene, cfg: RenderConfig, res: Residuals,
-                     slow_cost: float = 16.0) -> dict:
+                     slow_cost: float = 16.0, pixels=None) -> dict:
     """The twin's targets from the port's own counts of K2 on this record:
     operations per ray (``bwd_work``), dependency depth and its
     slow-weighted form (the K2_* hand counts), slow operations per ray, and
-    ``live``, the bounce steps per ray that both run."""
-    rays = res.prim_id.numel()
-    live = chain_steps(scene, cfg, res) / rays
-    _, ops = bwd_work(cfg, scene, res)
+    ``live``, the bounce steps per ray that both run. ``pixels`` (bool
+    [rows * W]): the rays of those pixels only, as one launch of K2's split
+    runs them (the chain-free launch's have no step: ``live`` 0 and K2's
+    per-ray depth)."""
+    sub = res if pixels is None else pixels_of(res, pixels)
+    rays = max(sub.prim_id.numel(), 1)
+    live = chain_steps(scene, cfg, sub) / rays
+    _, ops = bwd_work(cfg, scene, res, pixels=pixels)
     depth = K2_DEPTH_RAY + live * K2_DEPTH_STEP
     return {"target_per_lane": ops / rays, "target_depth": depth,
             "target_wdepth": depth + (slow_cost - 1.0) * (
@@ -844,41 +855,42 @@ def _twin_slots(total: int, n_main: int) -> list[int]:
     return [base + (1 if i < extra else 0) for i in range(n_main)]
 
 
-def build_bwd_structure_twin(scene, cfg: RenderConfig, res: Residuals, *,
-                             target_per_lane: float, target_depth: float,
-                             target_wdepth: float, slow_per_lane: float,
-                             live: float, target_registers: int,
-                             slow_cost: float = 16.0,
-                             main_step_ratio: float = 1380.0 / 233.0) -> dict:
-    """Structure twin of K2 (``csrc/render_bwd.cu``), the counterpart of
-    the JAX package's ``build_bwd_structure_twin``: K2's loop and memory
-    structure on the record ``res`` (see ``csrc/bwd_twin.cu``), with bwdmix
-    calibration chains sized, per ray, to K2's operation count
-    (``target_per_lane``), dependency depth (``target_depth``), slow-op
-    weighted depth (``target_wdepth``, a divide costing ``slow_cost``) and
-    slow operations (``slow_per_lane``); ``live`` is the bounce steps per
-    ray the record runs (``bwd_twin_targets`` gives all of these from the
-    port's counts of K2). ``target_registers``: K2's ptxas registers; the
-    smallest pool instance whose registers reach them without spilling is
-    taken (0: no pool).
+TWIN_TARGETS = ("target_per_lane", "target_depth", "target_wdepth",
+                "slow_per_lane", "live")
+# Each twin launch's K2 launch, by the twin kernel's kind.
+K2_OF_TWIN = {"free": render_bwd.FREE_SYMBOL,
+              "chain": "render_bwd_kernel<false>"}
 
-    The sizing follows the JAX package (``flops.py:950-1007``): the step
-    chain's share of the operations from ``main_step_ratio``, the main
-    chain's iterations from the depth, its accumulators from the rest of
-    the operations, the divides on slot 0's chain for the slow-weighted
-    depth (less those the step chain already carries) and the rest on the
-    other slots, then the pool, whose fold is paid back out of the slots.
-    The twin's own operations and depth are counted analytically
-    (``twin_ops_per_ray``, ``twin_depth_per_ray``; there is no jaxpr), and
-    ``sass_census`` checks them on the card.
+
+def size_bwd_twin(aa: int, kind: str, *, target_per_lane: float,
+                  target_depth: float, target_wdepth: float,
+                  slow_per_lane: float, live: float, target_registers: int,
+                  slow_cost: float = 16.0,
+                  main_step_ratio: float = 1380.0 / 233.0) -> dict:
+    """One twin launch's sizing (``kind`` "free" or "chain", at ``aa``
+    rays a pixel), the counterpart of the JAX package's sizing
+    (``flops.py:950-1007``): bwdmix calibration chains sized, per ray, to
+    K2's operation count (``target_per_lane``), dependency depth
+    (``target_depth``), slow-op weighted depth (``target_wdepth``, a divide
+    costing ``slow_cost``) and slow operations (``slow_per_lane``); ``live``
+    is the bounce steps per ray the launch runs (``bwd_twin_targets``).
+    ``target_registers``: that K2 launch's ptxas registers; the smallest
+    pool instance of ``kind`` whose registers reach them without spilling
+    is taken (0: no pool).
+
+    The step chain's share of the operations comes from
+    ``main_step_ratio``, the main chain's iterations from the depth, its
+    accumulators from the rest of the operations, the divides on slot 0's
+    chain for the slow-weighted depth (less those the step chain already
+    carries) and the rest on the other slots, then the pool, whose fold is
+    paid back out of the slots. The twin's own operations and depth are
+    counted analytically (``twin_ops_per_ray``, ``twin_depth_per_ray``;
+    there is no jaxpr), and ``sass_census`` checks them on the card.
 
     Returns the JAX dict (n_main, n_step, slots, n_pool, divs,
     census_per_lane, depth, wdepth, the targets, census_match, depth_match)
-    plus "registers" (the chosen instance's, None without a register
-    target), "run" (one launch of the twin on the whole frame: (sums, img))
-    and "run_plain" (its plain version on the same inputs)."""
-    aa = cfg.aa_rays
-
+    plus "kind", "symbol" (the instance), "registers" (its registers, None
+    without a register target) and "target_registers"."""
     def ops(n_step, slots, n_pool):
         return twin_ops_per_ray(n_step, slots, n_pool, live, aa)
 
@@ -893,6 +905,11 @@ def build_bwd_structure_twin(scene, cfg: RenderConfig, res: Residuals, *,
     d0 = twin_depth_per_ray(0, n_step, live)
     n_main = int(np.clip(round((target_depth - d0) / TWIN_ITER_OPS), 2,
                          bwd_twin.MAX_MAIN))
+    # never more than 10% under the depth target (the JAX test's bound;
+    # the chain-free launch's 66 would round to 59)
+    if (twin_depth_per_ray(n_main, n_step, live) < 0.9 * target_depth
+            and n_main < bwd_twin.MAX_MAIN):
+        n_main += 1
     slots = _twin_slots(round(budget / TWIN_ITER_OPS), n_main)
     # slow operations: the on-path count rides slot 0 (less the step
     # chain's slot-0 divides), the rest goes to the parallel slots
@@ -916,10 +933,11 @@ def build_bwd_structure_twin(scene, cfg: RenderConfig, res: Residuals, *,
                 left -= 1
         it += 1
     # the working set: the smallest pool that reaches K2's registers
+    pools = bwd_twin.FREE_POOLS if kind == "free" else bwd_twin.POOLS
     n_pool, registers = 0, None
     if target_registers > 0:
-        found = {n: kernel_resources(bwd_twin.symbol(n)) for n in bwd_twin.POOLS}
-        clean = [n for n in bwd_twin.POOLS
+        found = {n: kernel_resources(bwd_twin.symbol(n, kind)) for n in pools}
+        clean = [n for n in pools
                  if found[n]["spill_stores"] == 0 and found[n]["spill_loads"] == 0]
         reach = [n for n in clean if found[n]["registers"] >= target_registers]
         n_pool = reach[0] if reach else (clean[-1] if clean else 0)
@@ -928,15 +946,11 @@ def build_bwd_structure_twin(scene, cfg: RenderConfig, res: Residuals, *,
         divs = [{s for s in d if s < slots[i]} for i, d in enumerate(divs)]
     sizing = {"n_main": n_main, "n_step": int(n_step), "slots": slots,
               "divs": [sorted(d) for d in divs], "n_pool": n_pool}
-    bwd_twin.check_sizing(sizing)
+    bwd_twin.check_sizing(sizing, pools)
     n_div_path = sum(1 for d in divs if 0 in d)
     census = ops(n_step, slots, n_pool)
     depth = twin_depth_per_ray(n_main, n_step, live)
     wdepth = depth + (slow_cost - 1.0) * (n_div_path + on_path_step)
-
-    table = bwd_twin.twin_table(scene, cfg)
-    g = torch.full((cfg.height, cfg.width, 3), 1e-3, dtype=torch.float32,
-                   device=table.device)
     return {**sizing,
             "census_per_lane": round(census, 1),
             "target_per_lane": round(target_per_lane, 1),
@@ -948,7 +962,66 @@ def build_bwd_structure_twin(scene, cfg: RenderConfig, res: Residuals, *,
             "target_slow_per_lane": round(slow_per_lane, 1),
             "census_match": round(census / max(target_per_lane, 1e-9), 4),
             "depth_match": round(depth / max(target_depth, 1e-9), 4),
-            "registers": registers, "target_registers": target_registers,
-            "run": lambda: bwd_twin.bwd_twin(table, g, res, cfg, sizing),
-            "run_plain": lambda: bwd_twin.bwd_twin_plain(table, g, res, cfg,
-                                                         sizing)}
+            "live": live, "kind": kind,
+            "symbol": bwd_twin.symbol(n_pool, kind),
+            "registers": registers, "target_registers": target_registers}
+
+
+def build_bwd_structure_twin(scene, cfg: RenderConfig, res: Residuals, *,
+                             target_registers: int | None = None,
+                             slow_cost: float = 16.0,
+                             main_step_ratio: float = 1380.0 / 233.0,
+                             **targets) -> dict:
+    """Structure twin of K2 (``csrc/render_bwd.cu``), the counterpart of
+    the JAX package's ``build_bwd_structure_twin``: K2's launches and their
+    loop and memory structure on the record ``res`` (see
+    ``csrc/bwd_twin.cu``), each launch's calibration chains sized by
+    ``size_bwd_twin`` to that K2 launch. On a frame K2 splits
+    (``render_bwd.splits``) there are two: the free twin over the pixels
+    none of whose rays bounces (their targets: ``bwd_twin_targets`` of
+    those pixels) and the chain twin over the others
+    (``bwd_twin.chain_pixels``); otherwise the chain twin alone over every
+    pixel. ``target_registers``: None takes each K2 launch's ptxas
+    registers (``K2_OF_TWIN``: 128 for the free launch, 168 for the chain
+    launch, from the built library); a number holds every launch to it (0:
+    no pool). ``targets`` (the five names of ``TWIN_TARGETS``), given, size
+    the one launch of a frame K2 does not split in place of the record's
+    counts.
+
+    Returns {"split", "free" (the free twin's ``size_bwd_twin`` dict, None
+    where there is no split), "chain" (the chain twin's), "run" (one run of
+    the twin on the whole frame: (sums, img); ``run(parts=True)`` as
+    ``bwd_twin.bwd_twin`` gives it), "run_plain" (its plain version on the
+    same inputs)}; on a frame without the split also the chain twin's keys
+    at the top, one sizing over every pixel as before the split."""
+    table = bwd_twin.twin_table(scene, cfg)
+    split = render_bwd.splits(cfg, cfg.height, table.shape[0])
+    if targets:
+        if split or set(targets) != set(TWIN_TARGETS):
+            raise ValueError(f"build_bwd_structure_twin: explicit targets "
+                             f"({', '.join(TWIN_TARGETS)}) size the one "
+                             f"launch of a frame K2 does not split; got "
+                             f"{sorted(targets)}, split {split}")
+        per = {"chain": targets}
+    elif split:
+        on = bwd_twin.chain_pixels(table, res, cfg)
+        per = {kind: bwd_twin_targets(scene, cfg, res, slow_cost, pixels=m)
+               for kind, m in (("free", ~on), ("chain", on))}
+    else:
+        per = {"chain": bwd_twin_targets(scene, cfg, res, slow_cost)}
+    launches = {}
+    for kind, t in per.items():
+        regs = (kernel_resources(K2_OF_TWIN[kind])["registers"]
+                if target_registers is None else target_registers)
+        launches[kind] = size_bwd_twin(
+            cfg.aa_rays, kind, **t, target_registers=regs,
+            slow_cost=slow_cost, main_step_ratio=main_step_ratio)
+    chain, free = launches["chain"], launches.get("free")
+    g = torch.full((cfg.height, cfg.width, 3), 1e-3, dtype=torch.float32,
+                   device=table.device)
+    out = {"split": split, "free": free, "chain": chain,
+           "run": lambda parts=False: bwd_twin.bwd_twin(
+               table, g, res, cfg, chain, free, parts=parts),
+           "run_plain": lambda: bwd_twin.bwd_twin_plain(table, g, res, cfg,
+                                                        chain, free)}
+    return out if split else {**chain, **out}

@@ -9,15 +9,17 @@ mode's body and are summed. ``flops.measure_fp32_peak`` times it.
 ``census_probe(x)`` is one launch of ``census_probe_kernel``, the
 counterpart of the JAX test fixture ``tests/test_flops.py:_tiny_pallas``
 (five multiplies, then three adds), whose SASS ``flops.sass_census``
-counts.
+counts; ``floor_launch(x)`` launches a kernel that does nothing on the
+probe's grid (with ``copy``, only the probe's load and store): the launch
+floor its time is held against.
 
 The plain torch versions (``peak_chain_plain``, ``census_probe_plain``)
 repeat the arithmetic operation by operation in float32, in the kernel's
 order; ``fma`` is computed in float64 and rounded once, divides and square
 roots through float64 (``divide``, ``sqrt``), so that they round as the
 kernel's IEEE ones do. For a tensor on the CPU the wrappers run those; for
-a CUDA tensor they launch the kernel or raise. ``LAUNCHES`` and
-``PROBE_LAUNCHES`` count the launches.
+a CUDA tensor they launch the kernel or raise. ``LAUNCHES``,
+``PROBE_LAUNCHES`` and ``FLOOR_LAUNCHES`` count the launches.
 """
 from __future__ import annotations
 
@@ -37,9 +39,11 @@ UNROLL = {1: 20, 2: 20, 4: 10, 8: 4, 16: 2, 32: 1}
 MIX_OPS_PER_ITER = 17            # source operations of one mix / bwdmix body
 THREADS = 128
 
-# Kernel launches since import: the chains, the census probe.
+# Kernel launches since import: the chains, the census probe, the launch
+# floor.
 LAUNCHES = 0
 PROBE_LAUNCHES = 0
+FLOOR_LAUNCHES = 0
 
 _F = np.float32
 _BWD_DIV_SLOTS = (0, 3, 6, 9, 12)   # accumulators (mod 16) whose slot divides
@@ -217,3 +221,26 @@ def census_probe(x):
                            f"{err}")
     PROBE_LAUNCHES += 1
     return out
+
+
+def floor_launch(x, copy: bool = False):
+    """One launch of ``floor_kernel`` on the grid ``census_probe`` takes
+    for x: no work, or with ``copy`` only the probe's load and store
+    (returns the flat copy). The floor of a launch on this card; its plain
+    version, for a CPU tensor, does nothing (or copies)."""
+    global FLOOR_LAUNCHES
+    if x.device.type == "cpu":
+        return x.reshape(-1).clone() if copy else None
+    x = _flat("floor_launch x", x)
+    out = torch.empty_like(x)
+    fn = _build.load().floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(int(copy), x.data_ptr(), out.data_ptr(), x.numel(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"floor kernel launch failed: CUDA error {err}")
+    FLOOR_LAUNCHES += 1
+    return out if copy else None

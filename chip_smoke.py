@@ -186,6 +186,9 @@ LEAVES = tuple(f.name for f in dataclasses.fields(Scene))
 # the sharded path's frame (the JAX package's bench.py:streamed_bench_cfg)
 CFG_BIG = RenderConfig(width=128, height=128, aa_x=2, aa_y=2,
                        shadow_samples=3, bounces=2)
+# the bench's headline (bench_torch.py; the JAX package's roofline config)
+HEADLINE_CFG = RenderConfig(width=512, height=512, aa_x=2, aa_y=2,
+                            shadow_samples=10, bounces=1)
 GRAD_LEAVES = ("light_pos", "light_color", "tri_v0", "tri_v1", "tri_v2",
                "tri_rgb", "camera_pos", "yaw", "pitch")
 
@@ -846,6 +849,42 @@ def main() -> None:
                              f"{worst:.3g}")
     print(f"backward full_1024: two runs bit-equal on every leaf; replayed "
           f"radiance within {worst:.3g} of the forward frame", flush=True)
+    # the split (K2f's tile ranges, then K2c over its list) against the
+    # chain kernel alone over every pixel (SPLIT_RAYS past the frame), at
+    # full_1024 and at the headline: gradients within 1e-5, the replayed
+    # image bit for bit (the per-ray arithmetic is the same; only the order
+    # of the sums over rays differs)
+    for hname, hcfg, hres, hseed in (
+            ("full_1024", cfg, res, 11),
+            ("headline 512x512 aa4 s10 b1", HEADLINE_CFG,
+             render_fwd.render_fused_res(scene, HEADLINE_CFG, quads=None)[2],
+             12)):
+        hg = seeded_cotangent((hcfg.height, hcfg.width, 3), hseed)
+        reset_counts()
+        split_bar, split_img = render_bwd.render_replay_bwd(
+            scene, hcfg, hres, hg, return_primal=True)
+        torch.cuda.synchronize()
+        if render_bwd.FREE_LAUNCHES != 1 or counts()[2] != 1:
+            raise AssertionError(f"{hname}: the split made "
+                                 f"{render_bwd.FREE_LAUNCHES} chain-free and "
+                                 f"{counts()[2]} chain launches")
+        keep = render_bwd.SPLIT_RAYS
+        render_bwd.SPLIT_RAYS = 1 << 62
+        try:
+            one_bar, one_img = render_bwd.render_replay_bwd(
+                scene, hcfg, hres, hg, return_primal=True)
+        finally:
+            render_bwd.SPLIT_RAYS = keep
+        torch.cuda.synchronize()
+        one_rel, _, one_leaf = grad_errors(one_bar, split_bar)
+        if one_rel > 1e-5 or not torch.equal(one_img, split_img):
+            raise AssertionError(
+                f"{hname}: the split against one launch: {one_leaf} off by "
+                f"{one_rel:.3g} (budget 1e-5), image bit-equal "
+                f"{torch.equal(one_img, split_img)}")
+        print(f"backward {hname}: split (K2f + K2c) against one launch over "
+              f"every pixel: worst {one_leaf} {one_rel:.3g} relative (budget "
+              f"1e-5), replayed image bit-equal", flush=True)
 
     # --- 7. the large-scene path: the streamed kernels ---
     # 7a. the streamed forward equals the whole-table forward bit for bit on
@@ -1925,15 +1964,12 @@ def main() -> None:
             sass = flops.sass_census(tw[kind]["symbol"])
             r, kr = t["resources"][kind], k2_res[kind]
             lo = over[kind]
-            # K2c's blocks an SM from the runtime, K2f's by the occupancy
-            # rule (registers in units of 256 a warp, 1 KB of shared memory
-            # reserved a block)
-            k2f_smem = 4 * (t["n_obj"] * 17 + 21 + 4 * (t["n_obj"] * 16 + 21))
+            # K2c's and K2f's blocks an SM, the runtime's counts (K2f's at
+            # its grid's most shared memory)
             k2_per_sm = (render_bwd.chain_blocks_per_sm(
                 tcfg, t["scene"].num_triangles, t["scene"].num_spheres)
-                if kind == "chain" else min(
-                    65536 // (4 * -(-kr["registers"] * 32 // 256) * 256),
-                    233472 // (k2f_smem + 1024), 16))
+                if kind == "chain" else render_bwd.free_blocks_per_sm(
+                    t["n_obj"]))
             print(f"K7{kind[0]} vs K2{kind[0]} at {tname} [{card}]: twin "
                   f"device {lo['twin_ms']:.4f} ms, K2 device "
                   f"{lo['k2_ms']:.4f} ms, twin / K2 = {lo['ratio']:.4f}; "
@@ -2072,8 +2108,18 @@ def main() -> None:
     share_full = flops.chain_share(sc_full, cfg_full, res_full)
     scatter_full = {s: flops.scatter_work(sc_full, cfg_full, res_full, s)
                     for s in ("pr6", "pr7")}
+    # K2f's grid of tile ranges at full_1024: blocks, tiles a block, blocks an
+    # SM (the runtime's count), partial rows
+    n_obj_full = sc_full.num_triangles + sc_full.num_spheres
+    free_per_sm = render_bwd.free_blocks_per_sm(n_obj_full)
+    free_blocks, free_tiles = render_bwd.free_grid(
+        cfg_full.width * cfg_full.height, render_bwd.free_slots(
+            sc_full.device, n_obj_full))
+    free_grid_full = {"blocks_per_sm": free_per_sm, "grid_blocks": free_blocks,
+                      "tiles_a_block": free_tiles,
+                      "partial_rows": free_blocks}
     print(f"K2 split at full_1024: chain share {share_full}; scatter "
-          f"shuffles {scatter_full}", flush=True)
+          f"shuffles {scatter_full}; K2f grid {free_grid_full}", flush=True)
     src = "uob_raytracer_tpu_torch/csrc/"
     jax_fwd = "uob_raytracer_tpu/kernels/render_fwd.py"
     jax_bwd = "uob_raytracer_tpu/kernels/render_bwd.py"
@@ -2168,9 +2214,12 @@ def main() -> None:
               f"{jax_bwd}:366", train_free, bwd_abs, full["bwd"],
               full["plain_bwd"], free_work, full["bwd_free_dev"],
               at="full_1024, 5 train_steps: the pixels none of whose rays "
-              "bounces; ms, plain_ms and max_abs_err are the whole "
-              "backward's (one wrapper call launches both)",
-              pixels=1.0 - share_full["pixels"]),
+              "bounces, on a grid of contiguous ranges of 128-pixel tiles; "
+              "ms, plain_ms and max_abs_err are the whole backward's (one "
+              "wrapper call launches both)",
+              pixels=1.0 - share_full["pixels"],
+              resources=flops.kernel_resources(render_bwd.FREE_SYMBOL),
+              **free_grid_full),
         entry("K2c render_bwd chain launch", "render_bwd.cu",
               f"{jax_bwd}:366", train_launches[1], bwd_abs, full["bwd"],
               full["plain_bwd"], chain_work, full["bwd_chain_dev"],

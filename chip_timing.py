@@ -1,9 +1,10 @@
 """Device times of the port's kernels on one NVIDIA GPU, old beside new.
 
     python3 chip_timing.py [--tag NAME] [--out FILE] [--npz FILE]
-    python3 chip_timing.py --split [k1|k2k5|k3b|k2c|all] [--tag NAME] [--out FILE]
+    python3 chip_timing.py --split [k1|k2k5|k3b|k2c|k2f|all] [--tag NAME] [--out FILE]
     python3 chip_timing.py --k3b-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --k2c-ms [--tag NAME] [--out FILE]
+    python3 chip_timing.py --k2f-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --k7 [--tag NAME] [--out FILE]
     python3 chip_timing.py --compare A.npz B.npz
     python3 chip_timing.py --sass A.so B.so
@@ -93,10 +94,23 @@ moved past or below the frame), for the crossover; the ptxas registers,
 stack and spills, the blocks an SM holds (the runtime's count, or the
 occupancy rule in a checkout without the query) and the waves of the
 grid, the listed pixels, the rays a thread replays, and the lane-steps of
-the reverse sweeps against the steps the rays need. ``--split`` alone runs
-every part.
+the reverse sweeps against the steps the rays need. Its K2 chain-free
+part (``--split k2f``), at full_1024 and at the headline (``k2f_frames``):
+the chain-free kernel's device time less each of its pieces
+(``K2F_PIECES``: (a) no camera shuffles, (b) no object scatter and no
+carry, (c) the table staged a row a warp, (d) no pre-pass, the chain flags
+read from the list buffer where the wrapper put them, (e) a partial row
+only for the first 528 blocks), each from a patched copy under
+``build/k2f_<piece>/`` timed by ``--k2f-ms`` in a process of its own,
+with an unpatched copy (``build/k2f_base/``) timed before the first piece
+and after each; then the kernel's registers, spills and stack, its blocks
+an SM, grid, waves and listed pixels, and how evenly a grid of contiguous
+or dealt tiles shares the chain-free pixels (``free_balance``).
+``--split`` alone runs every part.
 
-``--k2c-ms`` times K2's chain kernel alone on the split's frames.
+``--k2c-ms`` times K2's chain kernel alone on the split's frames,
+``--k2f-ms`` K2's chain-free and chain kernels and every device kernel of
+one backward call on ``k2f_frames``.
 ``--k7`` times K7 beside K2 (``k7_frames``: full_1024, the headline,
 mirror_512): every device kernel of one twin run and of one backward,
 and, in a checkout whose twin mirrors K2 launch for launch, each twin
@@ -831,9 +845,11 @@ K2C_EAGER = {
 
 
 def patched_ms(tag: str, patches: dict, chain_index: bool, flag: str):
-    """``flag``'s JSON (``--k2c-ms`` or ``--k3b-ms``) from a copy of the
-    package under ``build/<tag>/`` with ``patches`` ({source: ((old, new),
-    ...)}) applied, and with ``chain_index`` every chain index of
+    """``flag``'s JSON (``--k2c-ms``, ``--k2f-ms`` or ``--k3b-ms``) from a
+    copy of the package under ``build/<tag>/`` with ``patches`` ({source:
+    ((old, new), ...)}; a source of ``csrc/``, or a path under the package
+    such as ``kernels/render_bwd.py``) applied, and with ``chain_index``
+    every chain index of
     bwd_ray.cuh made 0; run in a process of its own. None where a patch's
     text is not in the source exactly once (an older checkout)."""
     dst = os.path.join(ROOT, "build", tag)
@@ -844,13 +860,15 @@ def patched_ms(tag: str, patches: dict, chain_index: bool, flag: str):
     shutil.copy(os.path.abspath(__file__), dst)
     csrc = os.path.join(pkg, "csrc")
     for name, subs in patches.items():
-        with open(os.path.join(csrc, name)) as f:
+        # a source of csrc/, or a path under the package ("kernels/x.py")
+        path = os.path.join(pkg if "/" in name else csrc, name)
+        with open(path) as f:
             text = f.read()
         for old, new in subs:
             if text.count(old) != 1:
                 return None
             text = text.replace(old, new)
-        with open(os.path.join(csrc, name), "w") as f:
+        with open(path, "w") as f:
             f.write(text)
     if chain_index:
         path = os.path.join(csrc, "bwd_ray.cuh")
@@ -934,6 +952,268 @@ def k2c_split(out: dict) -> None:
         row["bound_ms"], row["bound_by"] = flops.bound(*row["work"])
         rows[name] = row
     out["k2c_split"] = rows
+
+
+def k2f_frames():
+    """The frames K2's chain-free launch (``render_bwd_free_kernel``) is
+    split on: (name, config, seed of the image cotangent), the Cornell box
+    at full_1024 and at the headline, both split by the record."""
+    return (("full_1024", RenderConfig(), 11), ("headline_512", HEADLINE, 12))
+
+
+def k2f_ms() -> dict:
+    """The chain-free kernel's device ms, the chain kernel's and every
+    device kernel's (the wrapper's sums of the partial rows among them) in
+    one backward call on each of ``k2f_frames``."""
+    cornell = rt.cornell_box()
+    out = {}
+    for name, cfg, seed in k2f_frames():
+        res = render_fwd.render_fused_res(cornell, cfg, quads=None)[2]
+        g = seeded((cfg.height, cfg.width, 3), seed)
+        k = device_kernels(lambda: render_bwd.render_replay_bwd(
+            cornell, cfg, res, g))
+        out[name] = {"ms": kernel_ms(k, "render_bwd_free_kernel"),
+                     "chain_ms": kernel_ms(k, "render_bwd_kernel"),
+                     "all_device_ms": sum(k.values()), "kernels_ms": k}
+    return out
+
+
+# The pieces of the chain-free kernel with one block a tile of 128 pixels
+# (15.5 waves at full_1024), each cut from a patched copy timed by ``--k2f-ms``
+# (``k2f_split``); each is a time, not a result, and reads null in a
+# checkout whose sources lack its text.
+# (a) No camera sums: lane 0 adds its own 21 camera terms, no shuffles.
+K2F_NO_CAMERA = {
+    "bwd_body.cuh": (
+        ("  // --- camera cotangents: the warp's 21 sums ---\n"
+         "  warp_camera(REPLAY_WCAM, dcam);",
+         "  if ((threadIdx.x & 31) == 0)\n"
+         "    for (int i = 0; i < kCamCols; ++i) REPLAY_WCAM[i] += dcam[i];"),),
+}
+# (b) No object scatter and no carry: a lane folds each primary row's
+# cotangent into one float, and lane 0 adds it to the accumulator at the
+# pixel's end.
+K2F_NO_SCATTER = {
+    "render_bwd.cu": (
+        ("  int carry_id;\n", "  int carry_id;\n  float sink;\n"),
+        ("    tb.carry_id = -1;\n",
+         "    tb.carry_id = -1;\n    tb.sink = 0.0f;\n"),
+        ("    if (Carry && site == 0) {\n"
+         "      const bool change = carry_id >= 0 && id >= 0 && id != carry_id;\n"
+         "      if (__any_sync(kFull, change)) warp_scatter(wacc, change ? "
+         "carry_id : -1, carry);\n"
+         "      if (id >= 0) {\n"
+         "        carry = id == carry_id ? add_grad(carry, g) : g;\n"
+         "        carry_id = id;\n"
+         "      }\n"
+         "    } else {\n",
+         "    if (Carry && site == 0) {\n"
+         "      if (id >= 0)\n"
+         "        sink += g.v0.x + g.v0.y + g.v0.z + g.e1.x + g.e1.y + g.e1.z"
+         " + g.e2.x +\n"
+         "                g.e2.y + g.e2.z + g.n.x + g.n.y + g.n.z + g.rgb.x"
+         " + g.rgb.y +\n"
+         "                g.rgb.z + g.r2;\n"
+         "    } else {\n"),
+        ("    if (Carry) {\n"
+         "      warp_scatter(wacc, carry_id, carry);\n"
+         "      carry_id = -1;\n"
+         "    }\n",
+         "    if (Carry && (threadIdx.x & 31) == 0) wacc[0] += sink;\n")),
+}
+# (c) No staging divide: a warp stages a row, a lane a column (both
+# kernels' STAGE_TABLES; only the chain-free kernel is timed).
+K2F_ROW_STAGING = {
+    "render_bwd.cu": (
+        ("  for (int i = threadIdx.x; i < n_obj * kObjCols; i += blockDim.x) {"
+         "                       \\\n"
+         "    const int o = i / kObjCols, c = i - o * kObjCols;"
+         "                                      \\\n",
+         "  for (int oc = threadIdx.x; oc < n_obj * 32; oc += blockDim.x) {  \\\n"
+         "    const int o = oc >> 5, c = oc & 31;                              \\\n"
+         "    if (c >= kObjCols) continue;                                     \\\n"
+         "    const int i = o * kObjCols + c;                                  \\\n"),),
+}
+# (d) No pre-pass: the wrapper puts each pixel's chain flag (from the
+# record and the materials, by torch ops before the launch) into the list
+# buffer, and the kernel reads it there in place of A ids and their
+# materials.
+K2F_LISTED = {
+    "render_bwd.cu": (
+        ("  bool has_chain = false;\n"
+         "  if (p < n_pix && P.bounces > 0) {\n"
+         "    const int A = P.aa_x * P.aa_y;\n"
+         "    for (int a = 0; a < A; ++a) {\n"
+         "      const int id = pid[a * n_pix + p];\n"
+         "      if (id >= 0) {\n"
+         "        const float mat = id < P.n_tri ? g_tri[id * kTriCols + 15]\n"
+         "                                       : g_sph[(id - P.n_tri) * "
+         "kSphCols + 7];\n"
+         "        has_chain = has_chain || mat <= 0.0f;\n"
+         "      }\n"
+         "    }\n"
+         "  }\n",
+         "  const bool has_chain = p < n_pix && P.bounces > 0 && list[p] != 0;\n"),),
+    "kernels/render_bwd.py": (
+        ("                blocks = partial_b.shape[0]\n",
+         "                blocks = partial_b.shape[0]\n"
+         "                mat_k = torch.cat([tri[:, 15], sph[:, 7]])\n"
+         "                pid_k = res_b.prim_id.reshape(A, -1).long()\n"
+         "                flag = ((pid_k >= 0)\n"
+         "                        & (mat_k[pid_k.clamp(min=0)] <= 0)).any(0)\n"
+         "                lists[:flag.numel()] = flag.int()\n"),),
+}
+# (e) One partial row per SM slot (4 blocks an SM on 132 SMs): blocks past
+# the first 528 neither zero their accumulators nor write their row.
+K2F_SLOT_ROWS = {
+    "render_bwd.cu": (
+        ("  if (!__syncthreads_or(in_img)) {\n"
+         "    zero_partial_row(partial, P);\n"
+         "    return;\n"
+         "  }\n",
+         "  const bool slot_row = blockIdx.x < 4 * 132;\n"
+         "  if (!__syncthreads_or(in_img)) {\n"
+         "    if (slot_row) zero_partial_row(partial, P);\n"
+         "    return;\n"
+         "  }\n"),
+        ("  STAGE_TABLES();\n  float* col = acc",
+         "  const bool slot_row = true;\n  STAGE_TABLES();\n  float* col = acc"),
+        ("  for (int i = threadIdx.x; i < kWarps * acc_cols; i += blockDim.x)"
+         " acc[i] = 0.0f;",
+         "  for (int i = threadIdx.x; slot_row && i < kWarps * acc_cols;"
+         " i += blockDim.x) acc[i] = 0.0f;"),
+        ("  for (int i = threadIdx.x; i < acc_cols; i += blockDim.x) {",
+         "  for (int i = threadIdx.x; slot_row && i < acc_cols;"
+         " i += blockDim.x) {")),
+}
+K2F_PIECES = (("a_no_camera", K2F_NO_CAMERA), ("b_no_scatter", K2F_NO_SCATTER),
+              ("c_row_staging", K2F_ROW_STAGING), ("d_listed", K2F_LISTED),
+              ("e_slot_rows", K2F_SLOT_ROWS))
+# The same cuts on the tile-range grid (a checkout with
+# ``render_bwd.free_grid``), and that grid taken over n waves in place of
+# ``render_bwd.FREE_WAVES`` (the slots scaled: more waves, fewer tiles a
+# block and more fixed work, the card's scheduler balancing the blocks).
+K2F_GRID_NO_CAMERA = {
+    "render_bwd.cu": (
+        ("  tb.flush();\n\n  // --- camera cotangents: the warp's 21 sums ---\n"
+         "  warp_camera(wacc + n_obj * kGradCols, dcam);",
+         "  tb.flush();\n  if ((threadIdx.x & 31) == 0)\n"
+         "    for (int i = 0; i < kCamCols; ++i) wacc[n_obj * kGradCols + i] += "
+         "dcam[i];"),),
+}
+K2F_GRID_NO_SCATTER = {
+    "render_bwd.cu": (("  tb.carry_id = -1;\n",
+                       "  tb.carry_id = -1;\n  tb.sink = 0.0f;\n"),) + tuple(
+        sub for sub in K2F_NO_SCATTER["render_bwd.cu"]
+        if not sub[0].startswith("    tb.carry_id")),
+}
+
+
+def _waves(n: int) -> dict:
+    return {"kernels/render_bwd.py": (
+        ("        slots = free_slots(dev, n_obj)\n",
+         f"        slots = free_slots(dev, n_obj) * {n} // FREE_WAVES\n"),)}
+
+
+K2F_GRID_PIECES = (("a_no_camera", K2F_GRID_NO_CAMERA),
+                   ("b_no_scatter", K2F_GRID_NO_SCATTER),
+                   ("c_row_staging", K2F_ROW_STAGING),
+                   ("f_one_wave", _waves(1)), ("g_four_waves", _waves(4)))
+
+
+def free_balance(chain_pix, slots: int) -> dict:
+    """How evenly a grid of at most ``slots`` blocks, each taking T whole
+    tiles of 128 pixels, shares the chain-free pixels (``chain_pix``: bool
+    per pixel, True where the pixel is listed): for contiguous ranges of T
+    tiles and for tiles dealt out in turn (block b taking b, b + grid,
+    ...), the most chain-free pixels a block gets over the mean, with T
+    the fewest whole tiles a block that fit ``slots`` blocks."""
+    free = (~chain_pix.reshape(-1)).to(torch.int64)
+    pad = -free.numel() % render_bwd.THREADS
+    per_tile = torch.cat([free, free.new_zeros(pad)]).reshape(
+        -1, render_bwd.THREADS).sum(dim=1)
+    n = per_tile.numel()
+    t = -(-n // slots)
+    grid = -(-n // t)
+    tiles = torch.cat([per_tile, per_tile.new_zeros(grid * t - n)])
+    out = {"tiles_a_block": t, "grid": grid}
+    for name, sums in (("contiguous", tiles.reshape(grid, t).sum(dim=1)),
+                       ("dealt", tiles.reshape(t, grid).sum(dim=0))):
+        out[name] = {"max_over_mean": float(sums.max()) / float(
+            sums.float().mean()), "max": int(sums.max()),
+            "min": int(sums.min())}
+    return out
+
+
+def k2f_split(out: dict) -> None:
+    """K2's chain-free kernel less each of its pieces (``K2F_PIECES``, or
+    ``K2F_GRID_PIECES`` on the tile-range grid) on ``k2f_frames``: the
+    checkout's own kernel from an unpatched copy (``build/k2f_base/``)
+    before the first piece and after each, every
+    piece from its patched copy (``build/k2f_<piece>/``), each timed by
+    ``--k2f-ms`` in a process of its own; a piece's time beside the mean
+    of the two runs around it. Then the kernel's ptxas registers, spills
+    and stack, its blocks an SM (the runtime's count where the checkout
+    has the query, else the occupancy rule), its grid and waves, and the
+    pixels it lists."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def timed(tag, patch):
+        try:
+            return patched_ms(tag, patch, False, "--k2f-ms")
+        except subprocess.CalledProcessError:     # it did not build or run
+            return None
+    pieces = (K2F_GRID_PIECES if hasattr(render_bwd, "free_grid")
+              else K2F_PIECES)
+    runs = [("base", timed("k2f_base", {}))]
+    for name, patch in pieces:
+        runs.append((name, timed(f"k2f_{name}", patch)))
+        runs.append(("base", timed("k2f_base", {})))
+    cornell = rt.cornell_box()
+    n_obj = cornell.num_triangles + cornell.num_spheres
+    resources = flops.kernel_resources(render_bwd.FREE_SYMBOL)
+    rows = {"sms": sms, "order": [n for n, _ in runs]}
+    for frame, cfg, _ in k2f_frames():
+        res = render_fwd.render_fused_res(cornell, cfg, quads=None)[2]
+        A, n_pix = cfg.aa_rays, cfg.width * cfg.height
+        chain_pix = flops.chain_rays(cornell, cfg, res).reshape(
+            A, -1).any(dim=0)
+        tiles = -(-n_pix // render_bwd.THREADS)
+        if hasattr(render_bwd, "free_grid"):      # the tile-range grid
+            per_sm = render_bwd.free_blocks_per_sm(n_obj)
+            grid, per_block = render_bwd.free_grid(n_pix, per_sm * sms)
+            smem = render_bwd.free_shared_bytes(n_obj, per_block)
+        else:
+            smem = 4 * (n_obj * 17 + 21 + 4 * (n_obj * 16 + 21))
+            per_sm = blocks_per_sm_formula(resources["registers"], smem)
+            grid = tiles
+        base = [r[frame]["ms"] for n, r in runs if n == "base" and r]
+        row = {"base_ms": base, "pieces": {},
+               "kernels_ms": runs[0][1][frame]["kernels_ms"]
+               if runs[0][1] else None,
+               "resources": resources, "shared_bytes": smem,
+               "blocks_per_sm": per_sm, "blocks_per_sm_formula":
+               blocks_per_sm_formula(resources["registers"], smem),
+               "tiles": tiles, "grid_blocks": grid,
+               "waves": grid / (per_sm * sms), "pixels": n_pix,
+               "listed_pixels": int(chain_pix.sum()),
+               "partial_rows": grid,
+               "balance": free_balance(chain_pix, per_sm * sms)}
+        for i, (name, r) in enumerate(runs):
+            if name == "base":
+                continue
+            around = [x[frame]["ms"] for _, x in (runs[i - 1], runs[i + 1])
+                      if x]
+            ms = r[frame]["ms"] if r else None
+            ref = sum(around) / len(around) if around else None
+            row["pieces"][name] = {
+                "ms": ms, "base_around_ms": around,
+                "saved_ms": None if ms is None or ref is None else ref - ms,
+                "saved_share": None if ms is None or ref is None
+                else (ref - ms) / ref,
+                "all_device_ms": r[frame]["all_device_ms"] if r else None}
+        rows[frame] = row
+    out["k2f_split"] = rows
 
 
 def bwd_routing(out: dict) -> None:
@@ -1138,9 +1418,10 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--npz", default=None)
     ap.add_argument("--split", nargs="?", const="all", default=None,
-                    choices=("k1", "k2k5", "k3b", "k2c", "all"))
+                    choices=("k1", "k2k5", "k3b", "k2c", "k2f", "all"))
     ap.add_argument("--k3b-ms", action="store_true")
     ap.add_argument("--k2c-ms", action="store_true")
+    ap.add_argument("--k2f-ms", action="store_true")
     ap.add_argument("--k7", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
     ap.add_argument("--sass", nargs=2, metavar="LIB", default=None)
@@ -1161,11 +1442,14 @@ def main() -> None:
                "pass": (f"split {args.split}" if args.split
                         else "k3b" if args.k3b_ms
                         else "k2c" if args.k2c_ms
+                        else "k2f" if args.k2f_ms
                         else "k7" if args.k7 else "default")}
         if args.k3b_ms:
             out["k3b_ms"] = k3b_ms()
         if args.k2c_ms:
             out["k2c_ms"] = k2c_ms()
+        if args.k2f_ms:
+            out["k2f_ms"] = k2f_ms()
         if args.k7:
             k7_pass(out)
         if args.split in ("k1", "all"):
@@ -1176,7 +1460,10 @@ def main() -> None:
             k3b_split(out)
         if args.split in ("k2c", "all"):
             k2c_split(out)
-        if not (args.split or args.k3b_ms or args.k2c_ms or args.k7):
+        if args.split in ("k2f", "all"):
+            k2f_split(out)
+        if not (args.split or args.k3b_ms or args.k2c_ms or args.k2f_ms
+                or args.k7):
             default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:

@@ -1,9 +1,9 @@
 // One pixel's rays: the replay and its adjoint, as a body of code that the
 // chain-free kernel of render_bwd.cu includes INSIDE its __global__
-// function (after it has staged its tables and synchronised), not a header
-// of declarations. What one ray does (the loop's body) is bwd_ray.cuh,
-// which the chain kernel and the streamed kernel, one thread per AA ray,
-// include by themselves. The
+// function, once for each tile a block takes (after it has staged its
+// tables and synchronised), not a header of declarations. What one ray
+// does (the loop's body) is bwd_ray.cuh, which the chain kernel and the
+// streamed kernel, one thread per AA ray, include by themselves. The
 // code is shared as text because nvcc compiles it 19% slower (0.49 against
 // 0.41 ms on the full_1024 frame, H100) when it sits in a function, even
 // one forced inline. Every thread of the block runs it, threads without a
@@ -22,18 +22,17 @@
 //                            the band's pixels)
 //   size_t n_pix, p; bool in_img   the band's pixel count; this thread's
 //                            pixel, and whether it has one (p < n_pix)
+//   float dcam[kCamCols]     the thread's camera cotangents (added to; the
+//                            kernel sums them over the warp after its last
+//                            tile)
 //   Params P; const float* cam (the staged camera row); the kernel's g_img,
-//   pid, lit_in, bid, img and chain pointers; and four macros, undefined
+//   pid, lit_in, bid, img and chain pointers; and two macros, undefined
 //   again after the include:
 //   REPLAY_LOAD_ROW(id)              the Row of object id (-1: the miss row)
 //   REPLAY_SCATTER(site, a, id, g)   adds RowGrad g to object id's cotangent
 //                                    for site (0 primary, 1 + k bounce step
 //                                    k) of AA ray a; id < 0: nothing to add;
 //                                    reached by all 32 lanes of the warp
-//   REPLAY_FLUSH()                   after the pixel's last ray: adds what
-//                                    REPLAY_SCATTER held back; all 32 lanes
-//   REPLAY_WCAM                      float[21]: the warp's summed camera
-//                                    cotangents (the sums are added to it)
 // The replayed radiance goes to img when P.want_img.
 
   const int py = in_img ? (int)(p / P.width) : 0;
@@ -51,9 +50,6 @@
   // cotangent of one ray's color: the AA mean is sum / A
   const V3 dcolor = make(gpix.x / fA, gpix.y / fA, gpix.z / fA);
 
-  float dcam[kCamCols];
-#pragma unroll
-  for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
   V3 img_acc = zero3();
   ChainSteps<Deep> saved;
   ChainIds<Deep> saved_id;
@@ -63,13 +59,8 @@
 #include "bwd_ray.cuh"
   }
 
-  REPLAY_FLUSH();
-
   if (P.want_img && in_img) {
     img[p * 3 + 0] = img_acc.x / fA;
     img[p * 3 + 1] = img_acc.y / fA;
     img[p * 3 + 2] = img_acc.z / fA;
   }
-
-  // --- camera cotangents: the warp's 21 sums ---
-  warp_camera(REPLAY_WCAM, dcam);

@@ -37,12 +37,19 @@
 //   body without chain storage, step code or reverse sweep, at 4 blocks an
 //   SM (128 registers). It also writes, in order, the pixels it leaves out
 //   (a pixel with any chain ray goes whole, so that its rays stay in one
-//   block and its radiance is summed in ray order): per block a list and a
-//   count, which the wrapper turns into offsets with one cumsum on the
-//   device (no wait for the host). A block with no pixel left stops before
-//   it stages the tables, a warp with none skips the body.
+//   block and its radiance is summed in ray order): per 128-pixel tile a
+//   list and a count, which the wrapper turns into offsets with one cumsum
+//   on the device (no wait for the host). A block takes a contiguous range
+//   of tiles (8 at full_1024: 1,024 blocks in two waves on the H100's 528
+//   slots, where one block a tile made 8,192 blocks in 15.5 waves), so it
+//   stages the tables, zeroes its accumulators, sums its camera
+//   cotangents and writes its partial row once for all of them, a lane
+//   carries its primary row from tile to tile while the object repeats,
+//   and a warp with no pixel in a tile skips it. Two waves and not one:
+//   the card's scheduler then balances the blocks' uneven work (6% at
+//   full_1024, PERF.md).
 //   render_bwd_kernel then runs the listed pixels, compacted, one thread
-//   per AA ray, on the free launch's grid: block b takes chunks b, b +
+//   per AA ray, on a grid of one block a tile: block b takes chunks b, b +
 //   grid, ... of pixels_per_block(A) listed pixels (32 at 2x2 AA), each
 //   ray finding its pixel by a binary search over the offsets; a block
 //   with no chunk writes zeros and stops. Otherwise render_bwd_kernel alone
@@ -96,10 +103,13 @@
 // each worth 18% of the twin's time, and a register cap a loss wherever it
 // spilled; the chain kernel's own split (--split k2c) found its chain
 // storage worth at most 2% (12% in the deep instance) and its grid the
-// gap. At full_1024 the chain-free launch takes 0.22 ms for 93.5% of the
-// pixels, the chain launch 0.12 ms for the rest and their bounce steps;
-// the record (4 + 4 + 4*bounces bytes per ray) and the partial sums are
-// small beside that. PERF.md has the runs.
+// gap; the chain-free kernel's own split (--split k2f) found its camera
+// sums worth 10% and its scatter 19-25%, its partial rows and pre-pass
+// 3-4% and its staging nothing, which set its grid of tile ranges. At
+// full_1024 the chain-free launch takes 0.19 ms for 93.5% of the pixels
+// (0.22 with one block a tile), the chain launch 0.12 ms for the rest and
+// their bounce steps; the record (4 + 4 + 4*bounces bytes per ray) and the
+// partial sums are small beside that. PERF.md has the runs.
 //
 // The per-ray replay and its adjoint live in bwd_common.cuh and
 // bwd_ray.cuh (which bwd_body.cuh loops over a pixel's rays), shared with
@@ -142,6 +152,10 @@ __host__ __device__ inline int pixels_per_block(int A) {
 // The chain-free launch's blocks an SM: ptxas holds it to 128 registers
 // (PERF.md: 4 blocks beat 3, 5 and 6).
 constexpr int kFreeBlocks = 4;
+// The most tiles a block of the chain-free launch takes, so that their
+// ballots (16 KB at 1,024 tiles) fit beside the tables; a larger frame
+// gets more blocks.
+constexpr int kFreeMaxTiles = 1024;
 // The chain launch's: 3, so ptxas keeps it at 168 registers (PERF.md: left
 // free it took 197, 2 blocks an SM, and ran 1-20% slower).
 constexpr int kChainBlocks = 3;
@@ -150,8 +164,9 @@ constexpr int kChainBlocks = 3;
 // cotangents into the warp's accumulator in shared memory. With Carry (the
 // chain-free launch; in the chain launch the carry's registers cost more
 // than it saves, PERF.md), a lane holds its primary site's row back while
-// its object repeats from ray to ray, and the warp scatters only when some
-// lane's object changes (flush: at the pixel's end).
+// its object repeats from ray to ray and from pixel to pixel, and the warp
+// scatters only when some lane's object changes (flush: after the block's
+// last tile).
 template <bool Carry>
 struct WholeTables {
   const float* obj;
@@ -222,74 +237,95 @@ __device__ __forceinline__ void zero_partial_row(float* partial, const Params& P
   for (int i = threadIdx.x; i < cols; i += blockDim.x) partial[(size_t)blockIdx.x * cols + i] = 0.0f;
 }
 
-// The pixels without a bounce chain. Each block also writes the pixels it
-// leaves out, in order, to list[blockIdx.x * 128 ...] and their number to
-// count[blockIdx.x]. A block with no pixel left writes zeros and stops
-// before it stages the tables; a warp with none skips the body.
+// The pixels without a bounce chain: block b takes the contiguous tiles
+// b * T ... (b + 1) * T - 1 of kThreads pixels (T = tiles_per_block, the
+// fewest that put the grid on the card in two waves:
+// kernels/render_bwd.py:free_grid). It does its fixed work once: stages
+// the tables and zeroes its accumulators, flags the pixels of all its
+// tiles in one pre-pass over the record (a pixel with a chain ray is left
+// for the chain launch, whole), writes each tile's list, runs its tiles,
+// sums its warps' camera cotangents and writes one partial row. Tile t's
+// list is the pixels it leaves out, in order, at list[t * 128 ...], and
+// their number count[t], as one block a tile wrote them (the chain launch
+// searches them so). A lane's pixel in the next tile lies 128 pixels on,
+// on the same row or the next, so a lane carries its primary row across
+// its tiles while the object repeats, and a warp with no pixel in a tile
+// skips it.
 __global__ void __launch_bounds__(kThreads, kFreeBlocks)
     render_bwd_free_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
                            const float* __restrict__ g_cam, const float* __restrict__ g_img,
                            const int* __restrict__ pid, const float* __restrict__ lit_in,
                            float* __restrict__ partial, float* __restrict__ img,
-                           int* __restrict__ list, int* __restrict__ count, Params P) {
-  __shared__ int wcount[kWarps];
+                           int* __restrict__ list, int* __restrict__ count,
+                           int tiles_per_block, Params P) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t n_pix = (size_t)P.rows * P.width;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  // a ray has a chain when its primary object is specular (bwd_body.cuh:
-  // the forward sweep's first test); material codes from the tables
-  bool has_chain = false;
-  if (p < n_pix && P.bounces > 0) {
-    const int A = P.aa_x * P.aa_y;
-    for (int a = 0; a < A; ++a) {
-      const int id = pid[a * n_pix + p];
-      if (id >= 0) {
-        const float mat = id < P.n_tri ? g_tri[id * kTriCols + 15]
-                                       : g_sph[(id - P.n_tri) * kSphCols + 7];
-        has_chain = has_chain || mat <= 0.0f;
-      }
-    }
-  }
-  const unsigned bal = __ballot_sync(kFull, has_chain);
-  if (lane == 0) wcount[warp] = __popc(bal);
-  __syncthreads();
-  int rank = __popc(bal & ((1u << lane) - 1u)), total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    rank += w < warp ? wcount[w] : 0;
-    total += wcount[w];
-  }
-  if (has_chain) list[(size_t)blockIdx.x * kThreads + rank] = (int)p;
-  if (threadIdx.x == 0) count[blockIdx.x] = total;
-  // a pixel left out carries no ray here, as a thread past the ragged edge
-  const bool in_img = p < n_pix && !has_chain;
-  if (!__syncthreads_or(in_img)) {
-    zero_partial_row(partial, P);
-    return;
-  }
+  const int n_tiles = (int)((n_pix + kThreads - 1) / kThreads);
+  const int t0 = blockIdx.x * tiles_per_block;
+  const int n_mine = min(tiles_per_block, n_tiles - t0);
 
   STAGE_TABLES();
-  if (__any_sync(kFull, in_img)) {
-    constexpr bool Chain = false, Deep = false;
-    const size_t chain_stride = 0;
-    float* chain = nullptr;
-    const int* bid = nullptr;
-    WholeTables<true> tb;
-    tb.obj = obj;
-    tb.wacc = wacc;
-    tb.n_tri = P.n_tri;
-    tb.carry_id = -1;
+  // per tile of the block and warp: the ballot of the pixels left out
+  unsigned* left = reinterpret_cast<unsigned*>(acc + kWarps * acc_cols);
+  // a ray has a chain when its primary object is specular (bwd_ray.cuh:
+  // the forward sweep's first test); the material from the staged table
+  const int n_aa = P.aa_x * P.aa_y;
+  for (int i = 0; i < n_mine; ++i) {
+    const size_t p = (size_t)(t0 + i) * kThreads + threadIdx.x;
+    bool has_chain = false;
+    if (p < n_pix && P.bounces > 0) {
+      for (int a = 0; a < n_aa; ++a) {
+        const int id = pid[a * n_pix + p];
+        if (id >= 0) has_chain = has_chain || obj[id * kObjCols + 15] <= 0.0f;
+      }
+    }
+    const unsigned bal = __ballot_sync(kFull, has_chain);
+    if (lane == 0) left[i * kWarps + warp] = bal;
+  }
+  __syncthreads();
+  for (int i = 0; i < n_mine; ++i) {
+    const unsigned* bits = left + i * kWarps;
+    int rank = __popc(bits[warp] & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = __popc(bits[w]);
+      rank += w < warp ? c : 0;
+      total += c;
+    }
+    const size_t tile = (size_t)(t0 + i);
+    if ((bits[warp] >> lane) & 1u) list[tile * kThreads + rank] = (int)(tile * kThreads + threadIdx.x);
+    if (threadIdx.x == 0) count[tile] = total;
+  }
+
+  constexpr bool Chain = false, Deep = false;
+  const size_t chain_stride = 0;
+  float* chain = nullptr;
+  const int* bid = nullptr;
+  WholeTables<true> tb;
+  tb.obj = obj;
+  tb.wacc = wacc;
+  tb.n_tri = P.n_tri;
+  tb.carry_id = -1;
+  // the thread's camera cotangents, over all its pixels
+  float dcam[kCamCols];
+#pragma unroll
+  for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
+  for (int i = 0; i < n_mine; ++i) {
+    const size_t p = (size_t)(t0 + i) * kThreads + threadIdx.x;
+    // a pixel left out carries no ray here, as a thread past the ragged edge
+    const bool in_img = p < n_pix && !((left[i * kWarps + warp] >> lane) & 1u);
+    if (__any_sync(kFull, in_img)) {
 #define REPLAY_LOAD_ROW(id) tb.load(id)
 #define REPLAY_SCATTER(site, a, id, g) tb.scatter(site, a, id, g)
-#define REPLAY_FLUSH() tb.flush()
-#define REPLAY_WCAM (wacc + n_obj * kGradCols)
 #include "bwd_body.cuh"
 #undef REPLAY_LOAD_ROW
 #undef REPLAY_SCATTER
-#undef REPLAY_FLUSH
-#undef REPLAY_WCAM
+    }
   }
+  tb.flush();
 
+  // --- camera cotangents: the warp's 21 sums ---
+  warp_camera(wacc + n_obj * kGradCols, dcam);
   WRITE_PARTIAL_ROW();
 }
 
@@ -421,7 +457,13 @@ size_t chain_smem(const Params& P) {
   return whole_smem(P) + sizeof(float) * (size_t)pixels_per_block(A) * (A * 3 + 1);
 }
 
-// The chain launch's grid: the free launch's block count with a list (its
+// The chain-free kernel's: the tables and, for each tile a block takes,
+// its warps' ballots of the pixels left out (render_bwd.py:free_shared_bytes).
+size_t free_smem(const Params& P, int tiles_per_block) {
+  return whole_smem(P) + sizeof(unsigned) * (size_t)tiles_per_block * kWarps;
+}
+
+// The chain launch's grid: one block a 128-pixel tile with a list (its
 // blocks walk the listed pixels' chunks), else one block a chunk of every
 // pixel.
 unsigned chain_blocks(long long n_pix, int A, bool listed) {
@@ -448,24 +490,32 @@ cudaError_t allow_smem(F kernel, size_t smem) {
 // the list ceil(rows*W / 128), without it ceil(rows*W / pixels_per_block(A)));
 // contents on entry do not matter.
 
-// The chain-free launch (up to 32 objects): partial [ceil(rows*W / 128),
+// The chain-free launch (up to 32 objects) on a grid of `blocks` blocks of
+// `tiles_per_block` tiles of 128 pixels each (render_bwd.py:free_grid;
+// blocks * tiles_per_block must cover ceil(rows*W / 128) tiles, and
+// tiles_per_block be at most kFreeMaxTiles): partial [blocks,
 // (n_tri+n_sph)*16 + 21] is overwritten, list [ceil(rows*W / 128) * 128]
 // and count [ceil(rows*W / 128)] receive the pixels left for the chain
-// launch. Returns cudaGetLastError() of the launch.
+// launch. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a grid that does not cover the frame.
 extern "C" int render_bwd_free_launch(const float* tri, const float* sph, const float* cam,
                                       const float* g, const int* pid, const float* lit,
                                       float* partial, float* img, int* list, int* count,
-                                      const int* ip, const float* fp, void* stream) {
+                                      const int* ip, const float* fp, int blocks,
+                                      int tiles_per_block, void* stream) {
   const Params P = make_params(ip, fp);
   const long long n_pix = (long long)P.rows * P.width;
   if (n_pix == 0) return 0;
+  const long long n_tiles = (n_pix + kThreads - 1) / kThreads;
+  if (blocks <= 0 || tiles_per_block <= 0 || tiles_per_block > kFreeMaxTiles ||
+      (long long)blocks * tiles_per_block < n_tiles)
+    return (int)cudaErrorInvalidValue;
   const auto fn = render_bwd_free_kernel;
-  const size_t smem = whole_smem(P);
+  const size_t smem = free_smem(P, tiles_per_block);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
-  fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, partial, img,
-                                                      list, count, P);
+  fn<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      tri, sph, cam, g, pid, lit, partial, img, list, count, tiles_per_block, P);
   return (int)cudaGetLastError();
 }
 
@@ -493,6 +543,19 @@ extern "C" int render_bwd_launch(const float* tri, const float* sph, const float
   fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(tri, sph, cam, g, pid, lit, bid, partial,
                                                       img, chain, list, off, P);
   return (int)cudaGetLastError();
+}
+
+// How many blocks of the chain-free kernel one SM holds in a scene of n_obj
+// objects at kFreeMaxTiles tiles a block, the most shared memory it takes
+// (the runtime's occupancy count), into *blocks.
+extern "C" int render_bwd_free_blocks_per_sm(int n_obj, int* blocks) {
+  Params P{};
+  P.n_tri = n_obj;
+  const auto fn = render_bwd_free_kernel;
+  const size_t smem = free_smem(P, kFreeMaxTiles);
+  const cudaError_t e = allow_smem(fn, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
 }
 
 // How many blocks of the chain kernel's instance for these parameters one

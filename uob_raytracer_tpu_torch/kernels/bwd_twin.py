@@ -559,18 +559,21 @@ def k2_free_list(scene: Scene, cfg: RenderConfig, res: Residuals):
     dev = scene.device
     tri, sph, cam = (t.detach().contiguous() for t in pack_scene(scene))
     g = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
-    n_blocks = -(-H * W // THREADS)
-    partial = torch.empty((n_blocks, (n_tri + n_sph) * GRAD_COLS + CAM_COLS),
+    n_tiles = -(-H * W // THREADS)
+    blocks, per_block = render_bwd.free_grid(
+        H * W, render_bwd.free_slots(dev, n_tri + n_sph))
+    partial = torch.empty((blocks, (n_tri + n_sph) * GRAD_COLS + CAM_COLS),
                           dtype=torch.float32, device=dev)
-    lists = torch.empty((n_blocks * THREADS,), dtype=torch.int32, device=dev)
-    counts = torch.empty((n_blocks,), dtype=torch.int32, device=dev)
+    lists = torch.empty((n_tiles * THREADS,), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
     ints, floats = render_bwd.launch_params(cfg, 0, H, n_tri, n_sph, False)
     fn = render_bwd._declare(_build.load(), False)["free"]
     with torch.cuda.device(dev):
         err = fn(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(), g.data_ptr(),
                  res.prim_id.data_ptr(), res.lit_cnt.data_ptr(),
                  partial.data_ptr(), 0, lists.data_ptr(), counts.data_ptr(),
-                 ints, floats, torch.cuda.current_stream(dev).cuda_stream)
+                 ints, floats, blocks, per_block,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"render_bwd_free_kernel launch failed: CUDA error "
                            f"{err}")

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -96,6 +97,15 @@ def splits(cfg: RenderConfig, rows: int, n_obj: int) -> bool:
 # ``flops.sass_census`` take it (the chain kernel's register instance is
 # "render_bwd_kernel<false>").
 FREE_SYMBOL = "render_bwd_free_kernel"
+
+# The most tiles of THREADS pixels a block of the chain-free kernel takes
+# (kFreeMaxTiles in csrc/render_bwd.cu), and the waves its grid fills: two
+# waves let the card's scheduler balance the blocks' uneven work, which
+# one wave of longer blocks cannot (on the H100 two waves ran 6% faster
+# than one at full_1024 and alike at the headline, four 2-18% slower than
+# two; PERF.md §6).
+FREE_MAX_TILES = 1024
+FREE_WAVES = 2
 
 # The register instance keeps a ray's bounce chain in a per-thread array of
 # this many steps (kRegBounces in csrc/bwd_common.cuh); deeper configs
@@ -183,7 +193,8 @@ def _declare(lib: ctypes.CDLL, streamed: bool):
     partials, the image, the deep chain, params, pixels a block); or the
     whole-table kernels' as a dict: "chain" (tables, g, record, the
     partials, the image, the deep chain, list, offsets, params) and "free"
-    (tables, g, pid, lit, the partials, the image, list, counts, params)."""
+    (tables, g, pid, lit, the partials, the image, list, counts, params,
+    blocks, tiles a block)."""
     if streamed:
         fn = lib.render_bwd_streamed_launch
         fn.argtypes = ([ctypes.c_void_p] * 11
@@ -192,10 +203,42 @@ def _declare(lib: ctypes.CDLL, streamed: bool):
         return fn
     chain, free = lib.render_bwd_launch, lib.render_bwd_free_launch
     chain.argtypes = [ctypes.c_void_p] * 12 + [_INTS, _FLOATS, ctypes.c_void_p]
-    free.argtypes = [ctypes.c_void_p] * 10 + [_INTS, _FLOATS, ctypes.c_void_p]
+    free.argtypes = ([ctypes.c_void_p] * 10
+                     + [_INTS, _FLOATS, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
     for fn in (chain, free):
         fn.restype = ctypes.c_int
     return {"chain": chain, "free": free}
+
+
+def free_blocks_per_sm(n_obj: int) -> int:
+    """How many blocks of the chain-free kernel one SM of the current CUDA
+    device holds in a scene of ``n_obj`` objects (the runtime's occupancy
+    count at ``FREE_MAX_TILES`` tiles a block, the most shared memory a
+    block takes): with the SM count, the slots ``free_grid`` fills."""
+    fn = _build.load().render_bwd_free_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(n_obj, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"render_bwd_free_blocks_per_sm: CUDA error {err}")
+    return out.value
+
+
+def free_slots(device: torch.device, n_obj: int) -> int:
+    """The blocks of the chain-free kernel that CUDA ``device`` holds at
+    once in a scene of ``n_obj`` objects: ``free_blocks_per_sm`` times its
+    SMs (528 on an H100 SXM), asked once per device and object count."""
+    return _slots(torch.cuda.current_device() if device.index is None
+                  else device.index, n_obj)
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(index: int, n_obj: int) -> int:
+    with torch.cuda.device(index):
+        return free_blocks_per_sm(n_obj) * torch.cuda.get_device_properties(
+            index).multi_processor_count
 
 
 def chain_blocks_per_sm(cfg: RenderConfig, n_tri: int, n_sph: int) -> int:
@@ -249,11 +292,41 @@ def chain_blocks(n_pix: int, aa_rays: int, listed: bool) -> int:
                          pixels_per_block(aa_rays))
 
 
+def free_grid(n_pix: int, slots: int) -> tuple[int, int]:
+    """The chain-free kernel's grid over a band of n_pix pixels on a device
+    that holds ``slots`` of its blocks at once: (blocks, T), block b taking
+    the contiguous tiles b * T ... (b + 1) * T - 1 of ``THREADS`` pixels
+    (the last block fewer). T is the fewest tiles that put the grid in
+    ``FREE_WAVES`` waves (at most ``FREE_MAX_TILES``; a larger band takes
+    more blocks), and the grid the fewest blocks of T tiles that cover the
+    band: full_1024's 8,192 tiles are 1,024 blocks of 8 on an H100's 528
+    slots. (0, 0) for no pixel."""
+    tiles = launch_blocks(n_pix, THREADS)
+    if not tiles:
+        return 0, 0
+    t = min(-(-tiles // (FREE_WAVES * slots)), FREE_MAX_TILES)
+    return -(-tiles // t), t
+
+
+def free_shared_bytes(n_obj: int, tiles_per_block: int) -> int:
+    """Shared memory one block of the chain-free kernel uses (must match
+    ``free_smem`` in csrc/render_bwd.cu): the object table, the camera row,
+    one cotangent accumulator per warp, and for each of its tiles its
+    warps' ballots of the pixels left out."""
+    warps = THREADS // 32
+    return 4 * (n_obj * OBJ_COLS + CAM_COLS
+                + warps * (n_obj * GRAD_COLS + CAM_COLS)
+                + tiles_per_block * warps)
+
+
 def band_bytes(n: int, W: int, A: int, B: int, cols: int,
                streamed: bool) -> dict:
     """{name: (bytes, limit)} of the buffers one launch over a band of n
-    rows needs: the per-block partials (whole-table; each of the split's
-    two launches has a buffer of its own) or the per-site rows (streamed),
+    rows needs: the per-block partials (whole-table: the chain kernel's
+    grid over every pixel, which no buffer of the split's two launches
+    passes, since the chain-free launch's grid of tile ranges and the chain
+    launch's grid over the list take at most a block a tile) or the
+    per-site rows (streamed),
     and the deep chain when B > REG_BOUNCES: a slot per thread of the grid,
     whose block takes ``pixels_per_block(A)`` pixels, one thread per AA ray
     (the streamed kernel, and the whole-table chain kernel without the
@@ -478,12 +551,17 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
            if return_primal else None)
     launch = _declare(_build.load(), streamed)
     if split:
-        # the chain-free launch's lists of the pixels it leaves out, and the
-        # chain launch's partial rows
+        # the chain-free launch's grid of tile ranges for each band, its partial
+        # rows and its lists of the pixels it leaves out (one a tile); the
+        # chain launch's partial rows are ``partial``
+        slots = free_slots(dev, n_obj)
+        grids = {n: free_grid(n * W, slots) for _, n in bands}
+        partial_free = torch.empty(
+            (max(b for b, _ in grids.values()), cols), dtype=torch.float32,
+            device=dev)
         lists = torch.empty((threads,), dtype=torch.int32, device=dev)
         counts = torch.empty((threads // THREADS,), dtype=torch.int32,
                              device=dev)
-        partial_chain = torch.empty_like(partial)
     totals = None
     for o, n in bands:
         if (o, n) == (0, rows):
@@ -513,15 +591,18 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
                              *(t.data_ptr() for t in outs), img_ptr,
                              chain_ptr, ints, floats, ppb, stream)
             elif split:
-                blocks = partial_b.shape[0]
-                err = launch["free"](*tables_g, partial_b.data_ptr(), img_ptr,
-                                     lists.data_ptr(), counts.data_ptr(),
-                                     ints, floats, stream)
+                free_b, per_block = grids[n]
+                err = launch["free"](*tables_g, partial_free.data_ptr(),
+                                     img_ptr, lists.data_ptr(),
+                                     counts.data_ptr(), ints, floats, free_b,
+                                     per_block, stream)
                 if err == 0:
                     FREE_LAUNCHES += 1
-                    off = torch.cumsum(counts[:blocks], 0, dtype=torch.int32)
+                    # one count a tile: as many as the chain launch's blocks
+                    off = torch.cumsum(counts[:partial_b.shape[0]], 0,
+                                       dtype=torch.int32)
                     err = launch["chain"](
-                        *tables_g, bid_ptr, partial_chain.data_ptr(), img_ptr,
+                        *tables_g, bid_ptr, partial_b.data_ptr(), img_ptr,
                         chain_ptr, lists.data_ptr(), off.data_ptr(), ints,
                         floats, stream)
             else:
@@ -540,7 +621,7 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
             LAUNCHES += 1
             sums = partial_b.sum(dim=0)
             if split:
-                sums = sums + partial_chain[:blocks].sum(dim=0)
+                sums = partial_free[:grids[n][0]].sum(dim=0) + sums
             cot = _sums_cotangents(sums, n_tri, n_sph, sph.shape[0])
         totals = cot if totals is None else tuple(
             t + c for t, c in zip(totals, cot))

@@ -75,8 +75,10 @@ phase raising on failure and none caught:
    counterpart) to its plain version and its SASS to 5 FMUL + 3 FADD, and
    K7, the structure twin of the backward kernel (``csrc/bwd_twin.cu``),
    launch for launch as the backward takes its launches (the free twin
-   and the chain twin over its list where the backward splits, the chain
-   twin alone elsewhere), each launch sized to its own backward launch's
+   on the chain-free launch's grid of tile ranges, its grid printed beside
+   that launch's and held to it, and the chain twin over its list where
+   the backward splits, the chain twin alone elsewhere), each launch sized
+   to its own backward launch's
    counts and registers, to its plain version (sums, visits, the image
    bit for bit, the free twin's list against the backward's) at the JAX
    package's roofline config (512x512, 2x2 AA, 10 samples, 1 bounce), at
@@ -1778,8 +1780,10 @@ def main() -> None:
     # 11c. K7 against its plain version launch by launch, each twin launch
     # sized to its own K2 launch (counts and registers) on each record: the
     # JAX package's roofline record and full_1024, which K2 splits (the
-    # free twin, then the chain twin over the free twin's list, which must
-    # be K2f's), and mirror_512, which K2 takes in one launch
+    # free twin on K2f's grid of tile ranges, which must be the grid
+    # render_replay_bwd gives K2f, then the chain twin over the free twin's
+    # list, which must be K2f's), and mirror_512, which K2 takes in one
+    # launch
     cfg_roof = RenderConfig(width=512, height=512, aa_x=2, aa_y=2,
                             shadow_samples=10, bounces=1)
     res_roof = render_fwd.render_fused_res(cornell, cfg_roof, quads=None)[2]
@@ -1811,6 +1815,18 @@ def main() -> None:
         img_equal = torch.equal(img, ref["img"])
         list_equal = (not twin["split"] or torch.equal(
             parts["list"], bwd_twin.k2_free_list(tscene, tcfg, tres)))
+        if twin["split"]:
+            # K2f's grid as render_replay_bwd takes it for a frame of one band
+            k2f_grid = render_bwd.free_grid(
+                tcfg.height * tcfg.width,
+                render_bwd.free_slots(torch.device("cuda"), t_obj))
+            print(f"K7f grid at {tname}: {parts['grid'][0]} blocks x "
+                  f"{parts['grid'][1]} tiles; K2f's {k2f_grid[0]} x "
+                  f"{k2f_grid[1]}", flush=True)
+            if tuple(parts["grid"]) != k2f_grid:
+                raise AssertionError(
+                    f"K7f at {tname} launched on {parts['grid']}, K2f on "
+                    f"{k2f_grid}")
         if (not img_equal or not list_equal or any(
                 h["rel"] > 1e-5 or not h["visits"] or not h["finite"]
                 for h in held.values())):

@@ -114,7 +114,10 @@ one backward call on ``k2f_frames``.
 ``--k7`` times K7 beside K2 (``k7_frames``: full_1024, the headline,
 mirror_512): every device kernel of one twin run and of one backward,
 and, in a checkout whose twin mirrors K2 launch for launch, each twin
-launch over its K2 launch with its sizing, registers and blocks an SM; it
+launch over its K2 launch with its sizing, registers and blocks an SM,
+and on a split frame the grids of both free launches (blocks, tiles a
+block: K2f's ``render_bwd.free_grid``, the free twin's as its wrapper
+reports it, or one block a tile in a checkout whose wrapper does not); it
 runs in an older checkout too (its one-launch twin against all of K2).
 ``--k3b-ms`` times K3b alone (device ms of its kernel in one backward call)
 on the split's two configs and on the same two scenes at 512x512 (2,048
@@ -316,6 +319,21 @@ def k7_frames():
             ("mirror_512", baseline_configs()["mirror_512"], 81))
 
 
+def free_grids(twin, cfg, n_obj: int) -> dict:
+    """The grids (blocks, tiles a block) of K2f and of the free twin on a
+    frame K2 splits: K2f's as ``render_replay_bwd`` takes it for one band
+    (one block a tile in a checkout without ``render_bwd.free_grid``), the
+    twin's as its wrapper reports it (one block a tile in a checkout whose
+    wrapper reports none)."""
+    n_pix = cfg.height * cfg.width
+    tiles = -(-n_pix // render_fwd.THREADS)
+    k2f = (render_bwd.free_grid(n_pix, render_bwd.free_slots(
+        torch.device("cuda"), n_obj))
+        if hasattr(render_bwd, "free_grid") else (tiles, 1))
+    parts, _ = twin["run"](parts=True)
+    return {"k2f": list(k2f), "k7f": list(parts.get("grid", (tiles, 1)))}
+
+
 def k7_pass(out: dict) -> None:
     """K7 beside K2 on ``k7_frames``: every device kernel of one twin run
     and of one K2 backward, their sums and ratio, and, where the twin
@@ -340,6 +358,8 @@ def k7_pass(out: dict) -> None:
         row["ratio"] = row["twin_ms"] / row["k2_ms"]
         if "chain" in twin:
             row["split"] = twin["split"]
+            if twin["split"]:
+                row["grids"] = free_grids(twin, cfg, n_obj)
             for kind, k2_name in (("chain", "render_bwd_kernel"),
                                   ("free", "render_bwd_free_kernel")):
                 if twin[kind] is None:
@@ -486,7 +506,9 @@ def twin_split(scene, cfg, res, g) -> dict:
     pool is timed beside them too, and each twin with its calibration
     chains cut (``structure_only``). Beside them the free twin with its
     sizing changed one piece at a time (``resized``: no pool, no divides,
-    its slot-iterations over 2, 3 or 6 main iterations)."""
+    its slot-iterations over 2, 3 or 6 main iterations; ``structure_only``
+    the free twin's structure alone), each over K2f (``over_k2f``), and the
+    grids of both free launches (``free_grids``)."""
     n_obj = scene.num_triangles + scene.num_spheres
     twin = flops.build_bwd_structure_twin(scene, cfg, res)
     if not twin["split"]:
@@ -495,7 +517,10 @@ def twin_split(scene, cfg, res, g) -> dict:
     g_t = torch.full((cfg.height, cfg.width, 3), 1e-3, device="cuda")
     k2k = device_kernels(lambda: render_bwd.render_replay_bwd(
         scene, cfg, res, g))
-    smem = {"free": 4 * (n_obj * 17 + 21 + 4 * (n_obj * 16 + 21)),
+    # both free launches take the frame's grid of tile ranges, and with it
+    # each tile's ballots in shared memory
+    grids = free_grids(twin, cfg, n_obj)
+    smem = {"free": render_bwd.free_shared_bytes(n_obj, grids["k2f"][1]),
             "chain": render_fwd.bwd_shared_bytes(n_obj, cfg.aa_rays)}
 
     def row(ms, symbol, per_sm=None, kind="chain"):
@@ -563,7 +588,9 @@ def twin_split(scene, cfg, res, g) -> dict:
             "depth": flops.twin_depth_per_ray(sz["n_main"], sz["n_step"], 0.0),
             "ops": flops.twin_ops_per_ray(sz["n_step"], sz["slots"],
                                           sz["n_pool"], 0.0, cfg.aa_rays)}
-    return {"rows": rows, "free_variants": free_variants,
+    for v in free_variants.values():
+        v["over_k2f"] = v["ms"] / rows["K2f"]["ms"]
+    return {"rows": rows, "free_variants": free_variants, "grids": grids,
             "listed_pixels": int(bwd_twin.chain_pixels(
         table, res, cfg).sum()), "sizing": {
             k: {f: twin[k][f] for f in ("n_main", "n_step", "slots", "n_pool",

@@ -19,7 +19,10 @@ list (``chain_blocks``) is one block a tile, as before.
 On the card (``cuda``): the split backward against its plain version and
 against one launch of the chain kernel over every pixel, with few slots so
 that a block takes many tiles (the carry across tiles), two runs
-bit-equal. Tolerances as ``tests/test_torch_render_bwd.py``: leaf by leaf
+bit-equal; and K7f, K2f's structure twin (``kernels/bwd_twin.py``), on the
+same grids: its grid K2f's, its list K2f's bit for bit, its image its
+plain version's bit for bit, each launch's sums within 1e-5 of the sum of
+their terms' magnitudes (as ``tests/test_torch_flops.py``). Tolerances as ``tests/test_torch_render_bwd.py``: leaf by leaf
 max|a-b| / max(max|ref|, 1) within 1e-4 of the plain version (1e-3 where a
 ray meets the glass), 1e-5 of the one launch; the replayed image bit-equal
 to the one launch's.
@@ -31,6 +34,8 @@ import pytest
 import torch
 
 import uob_raytracer_tpu_torch as trt
+from uob_raytracer_tpu_torch import flops
+from uob_raytracer_tpu_torch.kernels import bwd_twin
 from uob_raytracer_tpu_torch.kernels import render_bwd as tbwd
 from uob_raytracer_tpu_torch.kernels import render_fwd as tfwd
 from uob_raytracer_tpu_torch.scene import Scene
@@ -65,12 +70,14 @@ def parent_lists(flags: np.ndarray):
     return lists, counts
 
 
-def free_walk(flags: np.ndarray, slots: int):
-    """The kernel's walk on the grid ``free_grid`` gives: (list, counts,
-    runs), runs the (block, thread, tile round, pixel) of every pixel
-    its main loop runs, in the order a block runs them."""
+def free_walk(flags: np.ndarray, slots: int, grid=None):
+    """The kernel's walk on the grid ``free_grid`` gives (or on ``grid``,
+    (blocks, tiles a block), where given: the free twin's walk on the grid
+    its wrapper launches): (list, counts, runs), runs the (block, thread,
+    tile round, pixel) of every pixel its main loop runs, in the order a
+    block runs them."""
     n_pix = flags.size
-    blocks, per = tbwd.free_grid(n_pix, slots)
+    blocks, per = tbwd.free_grid(n_pix, slots) if grid is None else grid
     tiles = -(-n_pix // THREADS)
     lists = np.full(tiles * THREADS, -1, np.int64)
     counts = np.full(tiles, -1, np.int64)
@@ -269,3 +276,38 @@ def test_free_kernel_on_card(cuda_device, monkeypatch, slots, frame):
     assert _leafwise(one, got) <= 1e-5
     ref = tbwd.render_replay_bwd_plain(sc, cfg, res, g)
     assert _leafwise(ref, got) <= (1e-3 if cfg.bounces >= 2 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 3, 528])
+def test_free_twin_on_card(cuda_device, monkeypatch, slots):
+    """K7f on K2f's grid for ``slots`` (12 and 4 tiles a block at 1 and 3:
+    the carry across tiles; one at 528), then K7c over its list: the free
+    twin's grid and list K2f's, the image bit-equal to the plain twin's,
+    each launch's sums within 1e-5 of the sum of their terms' magnitudes,
+    visits exact."""
+    cfg = trt.RenderConfig(width=64, height=48, aa_x=2, aa_y=2,
+                           shadow_samples=3, bounces=2)
+    sc = trt.cornell_box(device=cuda_device)
+    _, _, res = tfwd.render_fused_res(sc, cfg)
+    monkeypatch.setattr(tbwd, "SPLIT_RAYS", 0)
+    monkeypatch.setattr(tbwd, "free_slots", lambda device, n_obj: slots)
+    twin = flops.build_bwd_structure_twin(sc, cfg, res)
+    assert twin["split"]
+    before = (bwd_twin.LAUNCHES, bwd_twin.FREE_LAUNCHES)
+    parts, img = twin["run"](parts=True)
+    torch.cuda.synchronize()
+    assert (bwd_twin.LAUNCHES, bwd_twin.FREE_LAUNCHES) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert parts["grid"] == tbwd.free_grid(cfg.width * cfg.height, slots)
+    assert torch.equal(parts["list"], bwd_twin.k2_free_list(sc, cfg, res))
+    ref = twin["run_plain"]()
+    assert torch.equal(img, ref["img"])
+    n_obj = sc.num_triangles + sc.num_spheres
+    for kind, want in ref["launches"].items():
+        got = parts[kind]
+        err = ((got.double() - want["sums"]).abs()
+               / want["abs_sums"].clamp(min=1e-30)).max().item()
+        assert err <= 1e-5, (kind, err)
+        visits = got[:n_obj * 16].reshape(n_obj, 16)[:, 15].round().long()
+        assert torch.equal(visits, want["visits"])

@@ -14,14 +14,21 @@
 // tile walk:
 // - bwd_twin_free_kernel<NPool>, the twin of render_bwd_free_kernel: one
 //   thread per pixel looping over its A rays, 4 blocks an SM (ptxas held
-//   to 128 registers, as K2f); no chain storage and no step code; the
-//   camera row held in registers across the pixel; the primary site's row
-//   carried from ray to ray while the lane's object repeats, the warp
-//   scattering when some lane's object changes and at the pixel's end (K2f's
-//   carry). It lists the pixels it leaves out (those with a ray whose
-//   primary object is specular, when the config bounces) exactly as K2f
-//   writes its list and count; a block with no pixel left zeroes its
-//   partial row and stops before staging, a warp with none skips the body.
+//   to 128 registers, as K2f); no chain storage and no step code. It runs
+//   on K2f's grid of tile ranges (kernels/render_bwd.py:free_grid, the
+//   same blocks and tiles a block as K2f on the same frame): block b takes
+//   the contiguous 128-pixel tiles b * T ..., stages its table and zeroes
+//   its accumulators once, flags the pixels of all its tiles in one
+//   pre-pass (those with a ray whose primary object is specular, when the
+//   config bounces; the ballots kept per tile in shared memory) and writes
+//   each tile's list and count exactly as K2f writes them. A lane's pixel
+//   in the next tile lies 128 pixels on; the lane carries its primary
+//   site's row from ray to ray and from tile to tile while its object
+//   repeats, the warp scattering when some lane's object changes and once
+//   after the block's last tile (K2f's carry); a warp with no pixel in a
+//   tile skips it; the camera terms add up over all the block's pixels,
+//   then one warp_camera and one partial row a block (zeros for a block
+//   with no pixel to run).
 // - bwd_twin_chain_kernel<NPool>, the twin of render_bwd_kernel<false>:
 //   one thread per AA ray, 3 blocks an SM (168 registers, as K2c). The
 //   grid walks chunks of twin_ppb(A) pixels, block b taking chunks b, b +
@@ -92,6 +99,9 @@ constexpr int kStepAccs = 4;    // the step chain's accumulators
 // kFreeBlocks, kChainBlocks), so ptxas caps the twins' registers as K2's.
 constexpr int kTwinFreeBlocks = 4;
 constexpr int kTwinChainBlocks = 3;
+// The most tiles a block of the free twin takes (render_bwd.cu:
+// kFreeMaxTiles).
+constexpr int kTwinFreeMaxTiles = 1024;
 
 // The twin's sizing, from flops.build_bwd_structure_twin. slots[i] and
 // divs[i] (bit s: slot s divides) are iteration i of the first half for
@@ -280,85 +290,101 @@ __device__ __forceinline__ void twin_zero_partial_row(float* partial, const Twin
     out[i] = s;                                                                    \
   }
 
-// K2f's twin: the pixels none of whose rays has a chain. Each block also
-// writes the pixels it leaves out, in order, to list[blockIdx.x * 128 ...]
-// and their number to count[blockIdx.x], as render_bwd_free_kernel does.
+// K2f's twin: the pixels none of whose rays has a chain, block b over the
+// tiles b * T ... (b + 1) * T - 1 (T = tiles_per_block), as
+// render_bwd_free_kernel takes them. Tile t's pixels left out go, in order,
+// to list[t * 128 ...] and their number to count[t], as K2f writes them.
 template <int NPool>
 __global__ void __launch_bounds__(kThreads, kTwinFreeBlocks)
     bwd_twin_free_kernel(const float* __restrict__ table, const float* __restrict__ g_img,
                          const int* __restrict__ pid, const float* __restrict__ lit_in,
                          float* __restrict__ partial, float* __restrict__ img,
-                         int* __restrict__ list, int* __restrict__ count, TwinDims D,
-                         TwinSizing T) {
+                         int* __restrict__ list, int* __restrict__ count, int tiles_per_block,
+                         TwinDims D, TwinSizing T) {
   constexpr bool Chain = false;
   constexpr int Var = kTwinAsK2;
-  __shared__ int wcount[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t n_pix = (size_t)D.rows * D.width;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_tiles = (int)((n_pix + kThreads - 1) / kThreads);
+  const int t0 = blockIdx.x * tiles_per_block;
+  const int n_mine = min(tiles_per_block, n_tiles - t0);
   const int A = D.aa;
-  // a ray has a chain when its primary object is specular; material codes
-  // from column 15 of the table
-  bool has_chain = false;
-  if (p < n_pix && D.bounces > 0) {
-    for (int a = 0; a < A; ++a) {
-      const int id = pid[a * n_pix + p];
-      if (id >= 0) has_chain = has_chain || table[id * kObjCols + 15] <= 0.0f;
-    }
-  }
-  const unsigned bal = __ballot_sync(kFull, has_chain);
-  if (lane == 0) wcount[warp] = __popc(bal);
-  __syncthreads();
-  int rank = __popc(bal & ((1u << lane) - 1u)), total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    rank += w < warp ? wcount[w] : 0;
-    total += wcount[w];
-  }
-  if (has_chain) list[(size_t)blockIdx.x * kThreads + rank] = (int)p;
-  if (threadIdx.x == 0) count[blockIdx.x] = total;
-  // a pixel left out carries no ray here, as a thread past the ragged edge
-  const bool in_img = p < n_pix && !has_chain;
-  if (!__syncthreads_or(in_img)) {
-    twin_zero_partial_row(partial, D);
-    return;
-  }
 
   TWIN_STAGE();
-  if (__any_sync(kFull, in_img)) {
-    const float gx = in_img ? g_img[p * 3] : 0.0f;
-    float camr[kCamCols];
+  // per tile of the block and warp: the ballot of the pixels left out
+  unsigned* left = reinterpret_cast<unsigned*>(acc + kWarps * acc_cols);
+  // a ray has a chain when its primary object is specular; material codes
+  // from column 15 of the staged table
+  for (int i = 0; i < n_mine; ++i) {
+    const size_t p = (size_t)(t0 + i) * kThreads + threadIdx.x;
+    bool has_chain = false;
+    if (p < n_pix && D.bounces > 0) {
+      for (int a = 0; a < A; ++a) {
+        const int id = pid[a * n_pix + p];
+        if (id >= 0) has_chain = has_chain || obj[id * kObjCols + 15] <= 0.0f;
+      }
+    }
+    const unsigned bal = __ballot_sync(kFull, has_chain);
+    if (lane == 0) left[i * kWarps + warp] = bal;
+  }
+  __syncthreads();
+  for (int i = 0; i < n_mine; ++i) {
+    const unsigned* bits = left + i * kWarps;
+    int rank = __popc(bits[warp] & ((1u << lane) - 1u)), total = 0;
 #pragma unroll
-    for (int i = 0; i < kCamCols; ++i) camr[i] = cam[i];
-    float dcam[kCamCols];
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = __popc(bits[w]);
+      rank += w < warp ? c : 0;
+      total += c;
+    }
+    const size_t tile = (size_t)(t0 + i);
+    if ((bits[warp] >> lane) & 1u) list[tile * kThreads + rank] = (int)(tile * kThreads + threadIdx.x);
+    if (threadIdx.x == 0) count[tile] = total;
+  }
+
+  // the thread's camera terms and its carried primary row, over all its
+  // pixels
+  float dcam[kCamCols];
 #pragma unroll
-    for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
-    float img_acc[3] = {0.0f, 0.0f, 0.0f};
-    RowGrad carry = zero_grad();
-    int carry_id = -1;
-    // the chain's names, for the ray's discarded chain code only
-    const int* bid = nullptr;
-    float saved[kRegBounces][12];
-    int saved_id[kRegBounces];
-    for (int a = 0; a < A; ++a) {
+  for (int i = 0; i < kCamCols; ++i) dcam[i] = 0.0f;
+  RowGrad carry = zero_grad();
+  int carry_id = -1;
+  // the chain's names, for the ray's discarded chain code only
+  const int* bid = nullptr;
+  float saved[kRegBounces][12];
+  int saved_id[kRegBounces];
+  for (int i = 0; i < n_mine; ++i) {
+    const size_t p = (size_t)(t0 + i) * kThreads + threadIdx.x;
+    // a pixel left out carries no ray here, as a thread past the ragged edge
+    const bool in_img = p < n_pix && !((left[i * kWarps + warp] >> lane) & 1u);
+    if (__any_sync(kFull, in_img)) {
+      const float gx = in_img ? g_img[p * 3] : 0.0f;
+      float camr[kCamCols];
+#pragma unroll
+      for (int c = 0; c < kCamCols; ++c) camr[c] = cam[c];
+      float img_acc[3] = {0.0f, 0.0f, 0.0f};
+      for (int a = 0; a < A; ++a) {
 #define TWIN_CAM(i) camr[i]
 #define TWIN_SCATTER_PRIMARY(id, g) carry_scatter(wacc, carry, carry_id, id, g)
 #include "twin_ray.cuh"
 #undef TWIN_CAM
 #undef TWIN_SCATTER_PRIMARY
 #pragma unroll
-      for (int i = 0; i < 3; ++i) img_acc[i] = img_acc[i] + ray_img[i];
+        for (int c = 0; c < 3; ++c) img_acc[c] = img_acc[c] + ray_img[c];
+      }
+      if (in_img) {
+        const float fA = (float)A;
+        img[p * 3 + 0] = img_acc[0] / fA;
+        img[p * 3 + 1] = img_acc[1] / fA;
+        img[p * 3 + 2] = img_acc[2] / fA;
+      }
     }
-    warp_scatter(wacc, carry_id, carry);
-    if (in_img) {
-      const float fA = (float)A;
-      img[p * 3 + 0] = img_acc[0] / fA;
-      img[p * 3 + 1] = img_acc[1] / fA;
-      img[p * 3 + 2] = img_acc[2] / fA;
-    }
-    warp_camera(wacc + D.n_obj * kGradCols, dcam);
   }
+  // the carry's flush after the block's last tile
+  warp_scatter(wacc, carry_id, carry);
 
+  // --- camera columns: the warp's 21 sums ---
+  warp_camera(wacc + D.n_obj * kGradCols, dcam);
   TWIN_WRITE_PARTIAL_ROW();
 }
 
@@ -393,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, MinBlocks)
 #undef TWIN_WRITE_PARTIAL_ROW
 
 using FreeFn = void (*)(const float*, const float*, const int*, const float*, float*, float*,
-                        int*, int*, TwinDims, TwinSizing);
+                        int*, int*, int, TwinDims, TwinSizing);
 using ChainFn = void (*)(const float*, const float*, const int*, const float*, const int*,
                          float*, float*, const int*, const int*, const int*, TwinDims,
                          TwinSizing);
@@ -455,14 +481,19 @@ bool parse(const int* dims, const int* sizing, TwinDims& D, TwinSizing& T) {
          T.n_half >= 0 && T.n_second >= 0 && T.n_step >= 0 && D.aa > 0 && D.n_obj > 0;
 }
 
-// The free twin's shared memory: the table, the camera row and the warps'
-// accumulators; the chain twin's adds a chunk's image terms and pixels.
-size_t free_smem(const TwinDims& D) {
+// The twins' shared memory: the table, the camera row and the warps'
+// accumulators; the free twin's adds, for each tile a block takes, its
+// warps' ballots (as K2f's: render_bwd.py:free_shared_bytes), the chain
+// twin's a chunk's image terms and pixels.
+size_t table_smem(const TwinDims& D) {
   const size_t n_obj = (size_t)D.n_obj;
   return sizeof(float) * (n_obj * kObjCols + kCamCols + kWarps * (n_obj * kGradCols + kCamCols));
 }
+size_t free_smem(const TwinDims& D, int tiles_per_block) {
+  return table_smem(D) + sizeof(unsigned) * (size_t)tiles_per_block * kWarps;
+}
 size_t chain_smem(const TwinDims& D) {
-  return free_smem(D) + sizeof(float) * (size_t)twin_ppb(D.aa) * (D.aa * 3 + 1);
+  return table_smem(D) + sizeof(float) * (size_t)twin_ppb(D.aa) * (D.aa * 3 + 1);
 }
 
 template <class F>
@@ -481,25 +512,32 @@ cudaError_t allow_smem(F kernel, size_t smem) {
 // split without an instance, a sizing past the caps, or more bounces than
 // the chain storage holds.
 
-// The free twin of pool n_pool: partial [ceil(rows*W / 128), n_obj*16 +
-// 21] is overwritten, list [ceil(rows*W / 128) * 128] and count
-// [ceil(rows*W / 128)] receive the pixels left for the chain twin.
+// The free twin of pool n_pool on a grid of `blocks` blocks of
+// `tiles_per_block` tiles of 128 pixels each (K2f's: render_bwd.py:
+// free_grid; blocks * tiles_per_block must cover ceil(rows*W / 128) tiles,
+// and tiles_per_block be at most kTwinFreeMaxTiles): partial [blocks,
+// n_obj*16 + 21] is overwritten, list [ceil(rows*W / 128) * 128] and
+// count [ceil(rows*W / 128)] receive the pixels left for the chain twin; a
+// grid that does not cover the frame is refused.
 extern "C" int bwd_twin_free_launch(int n_pool, const float* table, const float* g,
                                     const int* pid, const float* lit, float* partial, float* img,
                                     int* list, int* count, const int* dims, const int* sizing,
-                                    void* stream) {
+                                    int blocks, int tiles_per_block, void* stream) {
   const FreeFn fn = pick_free(n_pool);
   TwinDims D;
   TwinSizing T;
   if (fn == nullptr || !parse(dims, sizing, D, T)) return (int)cudaErrorInvalidValue;
   const long long n_pix = (long long)D.rows * D.width;
   if (n_pix == 0) return 0;
-  const size_t smem = free_smem(D);
+  const long long n_tiles = (n_pix + kThreads - 1) / kThreads;
+  if (blocks <= 0 || tiles_per_block <= 0 || tiles_per_block > kTwinFreeMaxTiles ||
+      (long long)blocks * tiles_per_block < n_tiles)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = free_smem(D, tiles_per_block);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((n_pix + kThreads - 1) / kThreads);
-  fn<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(table, g, pid, lit, partial, img, list,
-                                                      count, D, T);
+  fn<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      table, g, pid, lit, partial, img, list, count, tiles_per_block, D, T);
   return (int)cudaGetLastError();
 }
 
@@ -534,9 +572,10 @@ extern "C" int bwd_twin_chain_launch(int n_pool, int split, const float* table, 
   return (int)cudaGetLastError();
 }
 
-// How many blocks of the free twin (kind 0) or the chain twin (kind 1) of
-// pool n_pool one SM holds at these dims (the runtime's occupancy count),
-// into *blocks.
+// How many blocks of the free twin (kind 0, at kTwinFreeMaxTiles tiles a
+// block, the most shared memory it takes, as K2f's count) or the chain
+// twin (kind 1) of pool n_pool one SM holds at these dims (the runtime's
+// occupancy count), into *blocks.
 extern "C" int bwd_twin_blocks_per_sm(int kind, int n_pool, const int* dims, int* blocks) {
   TwinDims D;
   D.rows = dims[0];
@@ -547,9 +586,10 @@ extern "C" int bwd_twin_blocks_per_sm(int kind, int n_pool, const int* dims, int
   if (kind == 0) {
     const FreeFn fn = pick_free(n_pool);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(fn, free_smem(D));
+    const size_t smem = free_smem(D, kTwinFreeMaxTiles);
+    const cudaError_t e = allow_smem(fn, smem);
     if (e != cudaSuccess) return (int)e;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, free_smem(D));
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, kThreads, smem);
   }
   const ChainFn fn = pick_chain(n_pool, 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;

@@ -8,9 +8,11 @@ kernel K2 (``csrc/render_bwd.cu``) driven by the same decision record,
 with the adjoint arithmetic replaced by bwdmix calibration chains whose
 sizes (``sizing``) ``flops.build_bwd_structure_twin`` solves for. It takes
 K2's launches by K2's own rule (``render_bwd.splits``): on a split frame
-``bwd_twin_free_kernel`` (K7f, K2f's twin: one thread per pixel, no chain)
-over the pixels none of whose rays bounces, listing the others, then one
-``torch.cumsum`` of its counts on the device and ``bwd_twin_chain_kernel``
+``bwd_twin_free_kernel`` (K7f, K2f's twin: one thread per pixel, no chain,
+on K2f's grid of tile ranges, ``render_bwd.free_grid``) over the pixels
+none of whose rays bounces, listing the others per tile as K2f lists
+them, then one ``torch.cumsum`` of its counts on the device and
+``bwd_twin_chain_kernel``
 (K7c, K2c's twin: one thread per AA ray) over the listed pixels;
 otherwise the chain twin alone over every pixel. It returns, as K2's
 wrapper does, the per-block partial rows of both launches summed by
@@ -113,23 +115,28 @@ def chain_pixels(table, res: Residuals, cfg: RenderConfig):
     return ray.any(dim=0)
 
 
-def launch_grids(n_pix: int, aa_rays: int, split: bool):
-    """(the free twin's blocks or None, the chain twin's blocks) over n_pix
-    pixels, as the launchers take them: K2's grids (the free launch one
-    block a 128 pixels; the chain launch on the free launch's grid with the
-    list, else one block a chunk of ``pixels_per_block(aa_rays)``)."""
-    free = -(-n_pix // THREADS) if split else None
-    ppb = THREADS if split else pixels_per_block(aa_rays)
-    return free, -(-n_pix // ppb)
+def launch_grids(n_pix: int, aa_rays: int, split: bool, slots: int = 0):
+    """(the free twin's grid or None, the chain twin's blocks) over n_pix
+    pixels, as the launchers take them: K2's grids. The free launch's is
+    K2f's grid of tile ranges on a device that holds ``slots`` of K2f's
+    blocks at once (``render_bwd.free_grid``: (blocks, tiles a block));
+    the chain launch takes one block a tile with the list (its blocks walk
+    the listed pixels' chunks), else one block a chunk of
+    ``pixels_per_block(aa_rays)`` (``render_bwd.chain_blocks``)."""
+    if split and slots < 1:
+        raise ValueError(f"bwd_twin: the free twin's grid needs the device's "
+                         f"slots for K2f's blocks (got {slots})")
+    free = render_bwd.free_grid(n_pix, slots) if split else None
+    return free, render_bwd.chain_blocks(n_pix, aa_rays, split)
 
 
 def listed(lists, counts):
-    """The pixels a free launch listed, in order: each block's first
-    counts[b] entries of lists[b * 128 ...] (int32 [sum(counts)])."""
-    blocks = counts.shape[0]
+    """The pixels a free launch listed, in order: each tile's first
+    counts[t] entries of lists[t * 128 ...] (int32 [sum(counts)])."""
+    tiles = counts.shape[0]
     keep = (torch.arange(THREADS, device=counts.device)[None, :]
             < counts[:, None])
-    return lists[:blocks * THREADS].reshape(blocks, THREADS)[keep].contiguous()
+    return lists[:tiles * THREADS].reshape(tiles, THREADS)[keep].contiguous()
 
 
 def _halves(sizing: dict):
@@ -415,12 +422,13 @@ _INTS = ctypes.POINTER(ctypes.c_int)
 
 def _declare(lib: ctypes.CDLL):
     """The two launchers: "free" (pool, table, g, pid, lit, the partials,
-    the image, list, counts, dims, sizing, stream) and "chain" (pool,
+    the image, list, counts, dims, sizing, blocks, tiles a block, stream)
+    and "chain" (pool,
     split, table, g, pid, lit, bid, the partials, the image, list,
     offsets, pixels, dims, sizing, stream)."""
     free, chain = lib.bwd_twin_free_launch, lib.bwd_twin_chain_launch
     free.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [_INTS] * 2
-                     + [ctypes.c_void_p])
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     chain.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [_INTS] * 2
                       + [ctypes.c_void_p])
     free.restype = chain.restype = ctypes.c_int
@@ -438,7 +446,11 @@ def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict,
     chain twin with ``sizing`` over the pixels the free twin listed;
     otherwise the chain twin alone runs every pixel. With ``parts`` it
     returns ({"free" (split only), "chain": each launch's sums; "list"
-    (split only): the free launch's listed pixels in order}, img). A CUDA
+    (split only): the free launch's listed pixels in order; "grid" (split
+    only, CUDA only): the free launch's (blocks, tiles a block)}, img). The
+    free twin runs on K2f's grid (``launch_grids`` with
+    ``render_bwd.free_slots``), so its partial rows, one a block, and the
+    order of its sums follow K2f's. A CUDA
     tensor launches the kernels; a CPU tensor runs ``bwd_twin_plain``.
     ``_split`` (a key of ``SPLITS``, pool SPLIT_POOL, CUDA only; "no_search"
     on a split frame) launches that split instance in place of the chain
@@ -482,7 +494,9 @@ def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict,
         _check("res.bounce_id", res.bounce_id, (B, A, H, W), torch.int32)
     dev = g.device
     cols = n_obj * GRAD_COLS + CAM_COLS
-    n_free, n_chain = launch_grids(H * W, A, split)
+    n_tiles = -(-H * W // THREADS)
+    grid, n_chain = launch_grids(
+        H * W, A, split, render_bwd.free_slots(dev, n_obj) if split else 0)
     partial = torch.empty((n_chain, cols), dtype=torch.float32, device=dev)
     img = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
     dims = (ctypes.c_int * 5)(H, W, A, B, n_obj)
@@ -493,15 +507,16 @@ def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict,
         record = (table.data_ptr(), g.data_ptr(), res.prim_id.data_ptr(),
                   res.lit_cnt.data_ptr())
         if split:
-            partial_free = torch.empty((n_free, cols), dtype=torch.float32,
+            # one partial row a block of the grid; a list and a count a tile
+            partial_free = torch.empty((grid[0], cols), dtype=torch.float32,
                                        device=dev)
-            lists = torch.empty((n_free * THREADS,), dtype=torch.int32,
+            lists = torch.empty((n_tiles * THREADS,), dtype=torch.int32,
                                 device=dev)
-            counts = torch.empty((n_free,), dtype=torch.int32, device=dev)
+            counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
             err = launch["free"](free_sizing["n_pool"], *record,
                                  partial_free.data_ptr(), img.data_ptr(),
                                  lists.data_ptr(), counts.data_ptr(), dims,
-                                 _sizing_ints(free_sizing), stream)
+                                 _sizing_ints(free_sizing), *grid, stream)
             if err != 0:
                 raise RuntimeError(f"bwd_twin free kernel launch failed: "
                                    f"CUDA error {err}")
@@ -526,15 +541,16 @@ def bwd_twin(table, g, res: Residuals, cfg: RenderConfig, sizing: dict,
     sums_free = partial_free.sum(dim=0)
     if parts:
         return {"free": sums_free, "chain": sums_chain,
-                "list": listed(lists, counts)}, img
+                "list": listed(lists, counts), "grid": grid}, img
     return sums_free + sums_chain, img
 
 
 def blocks_per_sm(kind: str, n_pool: int, cfg: RenderConfig, n_obj: int) -> int:
     """How many blocks of the ``kind`` twin ("free" or "chain") of pool
     ``n_pool`` one SM of the current CUDA device holds at ``cfg`` (the
-    runtime's occupancy count): an instrument, beside
-    ``render_bwd.chain_blocks_per_sm``."""
+    runtime's occupancy count; the free twin's at ``FREE_MAX_TILES`` tiles a
+    block, as ``render_bwd.free_blocks_per_sm`` counts K2f's): an
+    instrument, beside ``render_bwd.chain_blocks_per_sm``."""
     dims = (ctypes.c_int * 5)(cfg.height, cfg.width, cfg.aa_rays, cfg.bounces,
                               n_obj)
     fn = _build.load().bwd_twin_blocks_per_sm

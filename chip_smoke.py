@@ -56,9 +56,10 @@ phase raising on failure and none caught:
 8. the sharded path, at 8,192 triangles, 128x128, 2x2 AA, 3 samples, 2
    bounces (the JAX package's ``bench.py:bench_tp`` frame): holds the
    per-shard partial-scan kernels (nearest hit, occlusion) against their
-   plain versions on the ray batches that frame gives them, and on a
-   600-triangle shard, the nearest-hit ids against the streamed forward
-   kernel's record, and the nearest hit's replay backward against
+   plain versions on the ray batches that frame gives them, on a
+   600-triangle shard and on the tp=2 ranks' 4,096-triangle shards (two
+   nearest-hit runs bit-equal), the nearest-hit ids against the streamed
+   forward kernel's record, and the nearest hit's replay backward against
    autograd through the plain version (two runs bit-equal); drives the
    frame on one process (``shade`` with the kernel route and no sharded
    axis: three launches of each kernel), forward and forward+backward,
@@ -391,6 +392,7 @@ def reset_counts() -> None:
     render_bwd.FREE_LAUNCHES = 0
     render_bwd.SEGMENT_SUM_LAUNCHES = 0
     partial.NEAREST_LAUNCHES = partial.OCCLUDED_LAUNCHES = 0
+    partial.LAST_NEAREST_GRID = 0
     peak.LAUNCHES = peak.PROBE_LAUNCHES = peak.FLOOR_LAUNCHES = 0
     bwd_twin.LAUNCHES = bwd_twin.FREE_LAUNCHES = 0
 
@@ -472,6 +474,11 @@ def check_partial(what: str, calls):
     worst, frac_id, frac_occ, bits = 0.0, 0.0, 0.0, []
     for i, args in enumerate(calls["nearest"]):
         out = partial.nearest_tris(*args)
+        again = partial.nearest_tris(*args)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(out, again)):
+            raise AssertionError(f"{what}: nearest batch {i}: two K4 runs "
+                                 f"differ")
         torch.cuda.synchronize()
         ref = partial.nearest_tris_plain(*args)
         same = out[5] == ref[5]
@@ -1540,6 +1547,13 @@ def main() -> None:
         "8192 triangles 128x128 aa4 s3 b2", calls)
     _, calls600 = recorded_frame(d600, mid)
     check_partial("600 triangles 128x16 aa4 s3 b2", calls600)
+    # the tp=2 ranks' shards: the same rays against rows [0, 4096) and
+    # [4096, 8192), as render_image_sharded slices the table
+    half = big.num_triangles // 2
+    for r, rows in enumerate((slice(0, half), slice(half, None))):
+        check_partial(f"tp=2 rank {r}'s shard, 4096 triangles 128x128", {
+            "nearest": [tuple(x[rows] for x in a[:6]) + a[6:]
+                        for a in calls["nearest"]], "occluded": []})
     # the primary batch's winners against the streamed forward kernel's
     # record of the same frame (its shared-origin primary test rounds
     # differently from the general test; a sphere in front wins there)
@@ -1600,6 +1614,7 @@ def main() -> None:
         img_one = partial_frame(big, CFG_BIG)
     torch.cuda.synchronize()
     k4_launches, k5_launches = partial_counts()
+    k4_main_grid = partial.LAST_NEAREST_GRID
     if (k4_launches, k5_launches) != (1 + CFG_BIG.bounces,
                                       CFG_BIG.shadow_samples) or any(counts()):
         raise AssertionError(f"one-process frame: {partial_counts()} "
@@ -2136,6 +2151,13 @@ def main() -> None:
                       "partial_rows": free_blocks}
     print(f"K2 split at full_1024: chain share {share_full}; scatter "
           f"shuffles {scatter_full}; K2f grid {free_grid_full}", flush=True)
+    # K4's grid as the one-process frame (10c) launched it
+    k4_res = flops.kernel_resources("nearest_tris_kernel")
+    k4_grid = {"groups": partial.NEAR_GROUPS, "grid_blocks": k4_main_grid,
+               "blocks_per_sm": partial.nearest_blocks_per_sm(),
+               "registers": k4_res["registers"],
+               "spill_stores": k4_res["spill_stores"]}
+    print(f"K4 at dense_8192: {k4_grid}", flush=True)
     src = "uob_raytracer_tpu_torch/csrc/"
     jax_fwd = "uob_raytracer_tpu/kernels/render_fwd.py"
     jax_bwd = "uob_raytracer_tpu/kernels/render_bwd.py"
@@ -2313,7 +2335,7 @@ def main() -> None:
               launches_rank0_tp2_5_train_steps=tp_outs[0]["step_counts"][5],
               tp2_two_ranks_one_card_frame_ms=ranks["tp=2"]["frame_ms"],
               tp2_two_ranks_one_card_train_step_ms=ranks["tp=2"]["step_ms"],
-              transport=via),
+              transport=via, **k4_grid),
         entry("K5 occluded_tris (per-shard occlusion)", "partial.cu",
               "uob_raytracer_tpu/kernels/partial.py:194", k5_launches,
               1.0 if k5_frac else 0.0,

@@ -1,10 +1,11 @@
 """Device times of the port's kernels on one NVIDIA GPU, old beside new.
 
     python3 chip_timing.py [--tag NAME] [--out FILE] [--npz FILE]
-    python3 chip_timing.py --split [k1|k2k5|k3b|k2c|k2f|all] [--tag NAME] [--out FILE]
+    python3 chip_timing.py --split [k1|k2k5|k3b|k2c|k2f|k4|all] [--tag NAME] [--out FILE]
     python3 chip_timing.py --k3b-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --k2c-ms [--tag NAME] [--out FILE]
     python3 chip_timing.py --k2f-ms [--tag NAME] [--out FILE]
+    python3 chip_timing.py --k4-ms [--npz FILE] [--tag NAME] [--out FILE]
     python3 chip_timing.py --k7 [--tag NAME] [--out FILE]
     python3 chip_timing.py --compare A.npz B.npz
     python3 chip_timing.py --sass A.so B.so
@@ -38,7 +39,9 @@ full_1024; the mirror boxes past 16 bounces):
   pinned by ``_kernel``, on the Cornell box at the five baseline configs.
 
 ``--npz`` saves K1's image, packed image and record (pid, lit, bid) on
-those Cornell frames, K5's bits on the frame's three occlusion batches,
+those Cornell frames, K4's outputs (t, pos, nrm, rgb, mat, idx) on the
+dense_8192 frame's three nearest-hit batches, K5's bits on the frame's
+three occlusion batches,
 K2's gradients and replayed image at full_1024 and on the mirror box, and
 K3b's at dense_8192 and on the 600-triangle mirror box, so that two runs
 (parent and change) can be compared bit for bit with ``--compare``, which
@@ -106,8 +109,23 @@ with an unpatched copy (``build/k2f_base/``) timed before the first piece
 and after each; then the kernel's registers, spills and stack, its blocks
 an SM, grid, waves and listed pixels, and how evenly a grid of contiguous
 or dealt tiles shares the chain-free pixels (``free_balance``).
+Its K4 part (``--split k4``), on ``k4_frames`` (the dense_8192 frame's
+three nearest-hit batches, 65,536 rays x 8,192 rows; the same rays
+against each tp=2 rank's 4,096-row shard; the 600-triangle frame's three
+batches at 128x16, 8,192 rays x 600 rows): K4's device time with each of
+its pieces (``K4_PIECES``: (c) one and two thread groups a ray in place
+of four, (d) no division), each from a patched copy under
+``build/k4_<piece>/`` timed by ``--k4-ms`` in a process of its own, an
+unpatched copy (``build/k4_base/``) before the first piece and after
+each; then the kernel's registers and spills, its blocks an SM, the grid
+and warps an SM, its row loop's SASS, and its share of the bound at
+``flops.NEAREST_ROW_OPS`` and at the parent's 70 operations a row,
+against the data sheet and against K6's add chain measured in the same
+process.
 ``--split`` alone runs every part.
 
+``--k4-ms`` times K4 alone on ``k4_frames`` (device ms of each batch);
+with ``--npz`` it saves K4's outputs on every batch there.
 ``--k2c-ms`` times K2's chain kernel alone on the split's frames,
 ``--k2f-ms`` K2's chain-free and chain kernels and every device kernel of
 one backward call on ``k2f_frames``.
@@ -1243,6 +1261,147 @@ def k2f_split(out: dict) -> None:
     out["k2f_split"] = rows
 
 
+# ---------------------------------------------------------------------------
+# K4, the tp route's per-shard nearest-hit scan (--split k4, --k4-ms)
+# ---------------------------------------------------------------------------
+
+# the 600-triangle shard's frame (chip_smoke.py phase 10a): 128x16 aa4 s3 b2
+CFG_MID = RenderConfig(width=128, height=16, aa_x=2, aa_y=2,
+                       shadow_samples=3, bounces=2)
+K4_OUTS = ("t", "pos", "nrm", "rgb", "mat", "idx")
+
+
+def k4_frames():
+    """{frame: [argument tuple of each ``nearest_tris`` call]}: the three
+    batches of the dense_8192 frame through the kernel route (65,536 rays x
+    8,192 rows), the same rays against each tp=2 rank's shard (rows 0-4,095
+    and 4,096-8,191, as ``render_image_sharded`` slices them), and the three
+    batches of the 600-triangle frame at 128x16 (8,192 rays x 600 rows)."""
+    calls = recorded_batches(dense_scene(8192), CFG_BIG)["nearest"]
+    half = calls[0][0].shape[0] // 2
+    return {
+        "dense_8192": calls,
+        "tp2_rank0": [tuple(x[:half] for x in a[:6]) + a[6:] for a in calls],
+        "tp2_rank1": [tuple(x[half:] for x in a[:6]) + a[6:] for a in calls],
+        "dense_600": recorded_batches(dense_scene(600), CFG_MID)["nearest"],
+    }
+
+
+def k4_ms(npz: str | None = None) -> dict:
+    """K4's device ms on each batch of ``k4_frames`` (torch.profiler, mean
+    of 10 launches); with ``npz`` its outputs on every batch saved there."""
+    out, saved = {}, {}
+    for frame, batches in k4_frames().items():
+        ms = [kernel_ms(device_kernels(lambda a=a: partial.nearest_tris(*a)),
+                        "nearest_tris_kernel") for a in batches]
+        out[frame] = {"ms": ms, "mean_ms": sum(ms) / len(ms),
+                      "rays": int(batches[0][6].shape[0]),
+                      "rows": int(batches[0][0].shape[0])}
+        for i, a in enumerate(batches):
+            for name, x in zip(K4_OUTS, partial.nearest_tris(*a)):
+                saved[f"k4_{frame}_{i}_{name}"] = x.cpu().numpy()
+    if npz:
+        os.makedirs(os.path.dirname(os.path.abspath(npz)), exist_ok=True)
+        np.savez_compressed(npz, **saved)
+        out["npz"] = npz
+    return out
+
+
+# The pieces of K4, each a patch of the sources timed by ``--k4-ms`` in a
+# process of its own (``k4_split``): (c) one and two thread groups a ray in
+# place of four, (d) the row with its accept test but no 1.0f / detA (a
+# time, not a result; it changes which rows are accepted).
+def k4_groups_patch(groups: int) -> dict:
+    return {"partial.cu": (("constexpr int kNearGroups = 4;",
+                            f"constexpr int kNearGroups = {groups};"),),
+            "kernels/partial.py": (("NEAR_GROUPS = 4\n",
+                                    f"NEAR_GROUPS = {groups}\n"),)}
+
+
+K4_PIECES = (
+    ("c_groups_1", k4_groups_patch(1)),
+    ("c_groups_2", k4_groups_patch(2)),
+    ("d_no_division", {"partial.cu": (
+        ("  const float recip = 1.0f / (degen ? 1.0f : detA);\n"
+         "  const float t = cofactor_det(b, C) * recip;",
+         "  const float recip = degen ? 1.0f : detA;\n"
+         "  const float t = cofactor_det(b, C) * recip;"),)}))
+
+# operations a row test took before the redesign: fwd_common.cuh's
+# tri_test, four det3 of 14 (flops.NEAREST_ROW_OPS is the present row's)
+K4_PARENT_ROW_OPS = 70
+
+
+def k4_split(out: dict) -> None:
+    """K4's device ms on ``k4_frames`` from an unpatched copy
+    (``build/k4_base/``) before the first piece and after each, and each
+    piece (``K4_PIECES``) from its patched copy (``build/k4_<piece>/``),
+    each timed by ``--k4-ms`` in a process of its own; then, for each
+    frame, the kernel's ptxas registers and spills, the blocks an SM (the
+    runtime's count), the grid and the warps an SM, its row loop's SASS,
+    and its share of the bound at this row's count
+    (``flops.nearest_work``) and at the parent's 70 operations a row, at
+    the data sheet's 67 TFLOP/s and at K6's add chain measured in this
+    process."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def timed(tag, patch):
+        try:
+            return patched_ms(tag, patch, False, "--k4-ms")
+        except subprocess.CalledProcessError:     # it did not build or run
+            return None
+    runs = [("base", timed("k4_base", {}))]
+    for name, patch in K4_PIECES:
+        runs.append((name, timed(f"k4_{name}", patch)))
+        runs.append(("base", timed("k4_base", {})))
+    peak = flops.measure_fp32_peak()
+    rows = {"sms": sms, "order": [n for n, _ in runs],
+            "k6_add_k16_ops_per_s": peak["add"]}
+    res = flops.kernel_resources("nearest_tris_kernel")
+    per_sm = partial.nearest_blocks_per_sm()
+    try:
+        loops = flops.sass_census("nearest_tris_kernel")["loops"]
+        loop = max(loops, key=lambda lp: lp["fp32"]) if loops else None
+    except Exception as e:  # noqa: BLE001 - no cuobjdump: say so
+        loop = f"no census: {e}"
+    for frame, batches in k4_frames().items():
+        n_rays, n_tri = int(batches[0][6].shape[0]), int(batches[0][0].shape[0])
+        grid = partial.nearest_grid(n_rays)
+        base = [r[frame]["mean_ms"] for n, r in runs if n == "base" and r]
+        ms = sum(base) / len(base) if base else None
+        row = {"rays": n_rays, "rows": n_tri, "base_ms": base,
+               "base_batch_ms": runs[0][1][frame]["ms"] if runs[0][1] else None,
+               "groups": partial.NEAR_GROUPS, "resources": res,
+               "blocks_per_sm": per_sm, "grid_blocks": grid,
+               "warps_an_sm": grid * 4 / sms,
+               "resident_warps_an_sm": min(grid / sms, per_sm) * 4,
+               "row_loop_sass": loop, "pieces": {}, "share": {}}
+        work = flops.nearest_work(n_tri, n_rays)
+        parent_work = (work[0], n_rays * (K4_PARENT_ROW_OPS * n_tri + 20))
+        for ops, w in ((flops.NEAREST_ROW_OPS, work),
+                       (K4_PARENT_ROW_OPS, parent_work)):
+            b_sheet = flops.bound(*w)[0]
+            b_peak = flops.bound(*w, peak_fp32=peak["add"])[0]
+            row["share"][ops] = {
+                "bound_ms_data_sheet": b_sheet, "bound_ms_k6_peak": b_peak,
+                "share_data_sheet": b_sheet / ms if ms else None,
+                "share_k6_peak": b_peak / ms if ms else None}
+        for i, (name, r) in enumerate(runs):
+            if name == "base":
+                continue
+            around = [x[frame]["mean_ms"] for _, x in (runs[i - 1], runs[i + 1])
+                      if x]
+            p_ms = r[frame]["mean_ms"] if r else None
+            ref = sum(around) / len(around) if around else None
+            row["pieces"][name] = {
+                "ms": p_ms, "batch_ms": r[frame]["ms"] if r else None,
+                "base_around_ms": around,
+                "saved_share": None if p_ms is None or ref is None
+                else (ref - p_ms) / ref}
+        rows[frame] = row
+    out["k4_split"] = rows
+
+
 def bwd_routing(out: dict) -> None:
     """K2 against K3b and its segmented sum, pinned by ``_kernel``, on the
     Cornell box at the five baseline configs (device ms per call)."""
@@ -1334,6 +1493,9 @@ def default_pass(out: dict, npz: str | None) -> None:
         for a in calls["occluded"]]
     for i, a in enumerate(calls["occluded"]):
         saved[f"k5_bits_{i}"] = partial.occluded_tris(*a).cpu().numpy()
+    for i, a in enumerate(calls["nearest"]):
+        for name, x in zip(K4_OUTS, partial.nearest_tris(*a)):
+            saved[f"k4_{i}_{name}"] = x.cpu().numpy()
 
     # the whole-table backward: full_1024, deep on the mirror box, K2'
     cornell = rt.cornell_box()
@@ -1445,10 +1607,11 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--npz", default=None)
     ap.add_argument("--split", nargs="?", const="all", default=None,
-                    choices=("k1", "k2k5", "k3b", "k2c", "k2f", "all"))
+                    choices=("k1", "k2k5", "k3b", "k2c", "k2f", "k4", "all"))
     ap.add_argument("--k3b-ms", action="store_true")
     ap.add_argument("--k2c-ms", action="store_true")
     ap.add_argument("--k2f-ms", action="store_true")
+    ap.add_argument("--k4-ms", action="store_true")
     ap.add_argument("--k7", action="store_true")
     ap.add_argument("--compare", nargs=2, metavar="NPZ", default=None)
     ap.add_argument("--sass", nargs=2, metavar="LIB", default=None)
@@ -1470,6 +1633,7 @@ def main() -> None:
                         else "k3b" if args.k3b_ms
                         else "k2c" if args.k2c_ms
                         else "k2f" if args.k2f_ms
+                        else "k4" if args.k4_ms
                         else "k7" if args.k7 else "default")}
         if args.k3b_ms:
             out["k3b_ms"] = k3b_ms()
@@ -1477,6 +1641,8 @@ def main() -> None:
             out["k2c_ms"] = k2c_ms()
         if args.k2f_ms:
             out["k2f_ms"] = k2f_ms()
+        if args.k4_ms:
+            out["k4_ms"] = k4_ms(args.npz)
         if args.k7:
             k7_pass(out)
         if args.split in ("k1", "all"):
@@ -1489,8 +1655,10 @@ def main() -> None:
             k2c_split(out)
         if args.split in ("k2f", "all"):
             k2f_split(out)
+        if args.split in ("k4", "all"):
+            k4_split(out)
         if not (args.split or args.k3b_ms or args.k2c_ms or args.k2f_ms
-                or args.k7):
+                or args.k4_ms or args.k7):
             default_pass(out, args.npz)
     print(json.dumps(out), flush=True)
     if args.out:

@@ -269,11 +269,24 @@ def segment_sum_work(n_tri: int, ids):
     return (8 + 64) * live + (8 + 64) * n_tri, 16 * live
 
 
+# Operations of one nearest-hit row test, hand counted from
+# csrc/partial.cu:near_tile_row (each +, -, *, / and comparison one): b =
+# start - v0 (3); detA and the t numerator from the row's cofactors (5 each:
+# three products, two sums); u and v by det3 (14 each: three cofactors of
+# 3, three products, two sums); the reciprocal (1) and t, u, v times it (3);
+# u + v (1); the tests degen, t >= 0, u >= 0, v >= 0, u + v <= 1, t < best
+# (6). tri_test (fwd_common.cuh), which takes detA and the t numerator by
+# det3 too, takes 70.
+NEAREST_ROW_OPS = 52
+
+
 def nearest_work(n_tri: int, n_rays: int):
-    """(bytes, operations) of one nearest-hit launch: the 76 B rows and the
-    rays' 24 B read once, 52 B written per ray; per ray and row the general
-    Cramer test (about 70 operations), per ray the winner's position."""
-    return 76 * n_tri + 76 * n_rays, n_rays * (70 * n_tri + 20)
+    """(bytes, operations) of one nearest-hit launch: the 64 B rows and the
+    rays' 24 B read once, 48 B written per ray; per ray and row
+    ``NEAREST_ROW_OPS``, per row its cofactors once (9), per ray the
+    winner's position (about 20)."""
+    return 64 * n_tri + 72 * n_rays, (n_rays * (NEAREST_ROW_OPS * n_tri + 20)
+                                      + 9 * n_tri)
 
 
 def occluded_work(n_tri: int, bits):

@@ -8,7 +8,7 @@ each ONE launch of a CUDA kernel of ``csrc/partial.cu``: the Hopper
 counterparts of the TPU kernels
 ``uob_raytracer_tpu/kernels/partial.py:_nearest_kernel`` and
 ``_occluded_kernel``. Rays are ``[N, 3]`` float32 tensors as they come; the
-shard's table is packed here (``[T, 19]`` for the nearest hit, ``[T, 13]``
+shard's table is packed here (``[T, 16]`` for the nearest hit, ``[T, 13]``
 for the occlusion scan) and nothing is padded.
 
 ``nearest_tris`` is differentiable by path replay, as the JAX wrapper is:
@@ -39,11 +39,18 @@ from ..ops.intersect import DeviceScene, _best_triangle, tris_occlude
 from ..ops.math3 import cross3, det3
 from . import _build
 from .render_bwd import GRAD_COLS, segment_sum
-from .render_fwd import SHD_COLS, TRI_COLS, _check
+from .render_fwd import SHD_COLS, THREADS, _check
 
-# Kernel launches since import (plain counters, as the render kernels').
+# Kernel launches since import (plain counters, as the render kernels'),
+# and the grid of the last nearest-hit launch (blocks).
 NEAREST_LAUNCHES = 0
 OCCLUDED_LAUNCHES = 0
+LAST_NEAREST_GRID = 0
+
+# The nearest-hit kernel (csrc/partial.cu): its table's row (v0 e1 e2 n rgb
+# mat) and its thread groups a ray (kNearCols, kNearGroups there).
+NEAR_COLS = 16
+NEAR_GROUPS = 4
 
 # The plain versions hold at most this many (ray, triangle) pairs in one
 # [rays, triangles] intermediate (34 MB each in float32), as
@@ -107,15 +114,35 @@ def _rays(name: str, start, d):
     return start, d, n_rays
 
 
+def nearest_grid(n_rays: int) -> int:
+    """Blocks of the nearest-hit kernel for a batch of n_rays: ``THREADS //
+    NEAR_GROUPS`` rays a block."""
+    return -(-n_rays * NEAR_GROUPS // THREADS)
+
+
+def nearest_blocks_per_sm() -> int:
+    """How many blocks of the nearest-hit kernel one SM of the current CUDA
+    device holds (the runtime's occupancy count): an instrument."""
+    fn = _build.load().nearest_tris_blocks_per_sm
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"nearest_tris_blocks_per_sm: CUDA error {err}")
+    return out.value
+
+
 def _nearest_launch(v0, e1, e2, n, rgb, mat, start, d):
     """One launch of ``nearest_tris_kernel`` on CUDA tensors."""
-    global NEAREST_LAUNCHES
+    global NEAREST_LAUNCHES, LAST_NEAREST_GRID
     dev = start.device
     n_tri = v0.shape[0]
     start, d, n_rays = _rays("nearest_tris", start, d)
-    tri = torch.cat([v0, e1, e2, n, rgb, mat[:, None], cross3(e1, e2)],
+    tri = torch.cat([v0, e1, e2, n, rgb, mat[:, None]],
                     dim=1).detach().to(torch.float32).contiguous()
-    _check("nearest_tris table", tri, (n_tri, TRI_COLS))
+    _check("nearest_tris table", tri, (n_tri, NEAR_COLS))
+    blocks = nearest_grid(n_rays)
 
     def out(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -123,18 +150,19 @@ def _nearest_launch(v0, e1, e2, n, rgb, mat, start, d):
     t, pos, nrm, rgb_o = out(n_rays), out(n_rays, 3), out(n_rays, 3), out(n_rays, 3)
     mat_o, idx = out(n_rays), out(n_rays, dtype=torch.int32)
     fn = _build.load().nearest_tris_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(tri.data_ptr(), start.data_ptr(), d.data_ptr(), t.data_ptr(),
                  pos.data_ptr(), nrm.data_ptr(), rgb_o.data_ptr(),
-                 mat_o.data_ptr(), idx.data_ptr(), n_tri, n_rays,
+                 mat_o.data_ptr(), idx.data_ptr(), n_tri, n_rays, blocks,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nearest_tris kernel launch failed: CUDA error "
                            f"{err}")
     NEAREST_LAUNCHES += 1
+    LAST_NEAREST_GRID = blocks
     return t, pos, nrm, rgb_o, mat_o, idx
 
 

@@ -21,6 +21,8 @@ import subprocess
 import threading
 import time
 
+from .. import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 
@@ -83,6 +85,11 @@ def build() -> tuple[str, float]:
     path = library_path()
     if os.path.exists(path):
         return path, 0.0
+    with tracing.span("rt.build"):
+        return _compile(path)
+
+
+def _compile(path: str) -> tuple[str, float]:
     nvcc = tool("nvcc")
     tmp = f"{path}.{os.getpid()}.tmp"
     objs = tmp + ".d"

@@ -58,6 +58,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import RenderConfig
 from ..ops.replay import Residuals, replay_forward
 from ..scene import Scene
@@ -143,12 +144,14 @@ def _pull_back(outputs, leaves: Scene, cotangents) -> Scene:
     zeros."""
     # an output no leaf feeds (the zero row that stands for "no spheres")
     # carries no graph
-    pairs = [(o, c) for o, c in zip(outputs, cotangents) if o.requires_grad]
-    grads = torch.autograd.grad([o for o, _ in pairs],
-                                [getattr(leaves, k) for k in _LEAVES],
-                                [c for _, c in pairs], allow_unused=True)
-    return Scene(**{k: torch.zeros_like(getattr(leaves, k)) if g is None else g
-                    for k, g in zip(_LEAVES, grads)})
+    with tracing.span("rt.bwd.pull_back"):
+        pairs = [(o, c) for o, c in zip(outputs, cotangents)
+                 if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    [getattr(leaves, k) for k in _LEAVES],
+                                    [c for _, c in pairs], allow_unused=True)
+        return Scene(**{k: torch.zeros_like(getattr(leaves, k))
+                        if g is None else g for k, g in zip(_LEAVES, grads)})
 
 
 # --------------------------------------------------------------------------
@@ -161,8 +164,10 @@ def render_replay_bwd_plain(scene: Scene, cfg: RenderConfig, res: Residuals,
     """The plain torch version of ``render_replay_bwd``, on the scene's
     device: torch autograd through ``replay_forward``."""
     with torch.enable_grad():
-        leaves = _detached(scene)
-        img = replay_forward(leaves, cfg, res, row0, rows)
+        with tracing.span("rt.bwd.pack"):
+            leaves = _detached(scene)
+        with tracing.span("rt.bwd.launch"):
+            img = replay_forward(leaves, cfg, res, row0, rows)
         bar = _pull_back([img], leaves, [g.to(img.dtype)])
     return (bar, img.detach()) if return_primal else bar
 
@@ -422,34 +427,37 @@ def segment_sum(ids, rows, n_seg: int):
     float atomics, two calls on the same inputs give the same bits. A CPU
     tensor takes ``segment_sum_plain``."""
     global SEGMENT_SUM_LAUNCHES
-    if rows.device.type == "cpu":
-        return segment_sum_plain(ids, rows, n_seg)
-    dev = rows.device
-    ids = ids.reshape(-1)
-    _check("segment_sum ids", ids, (rows.shape[0],), torch.int32)
-    _check("segment_sum rows", rows, (ids.shape[0], GRAD_COLS))
-    if rows.data_ptr() % 16:      # the kernels read rows as float4
-        rows = rows.clone()
-    n = ids.shape[0]
-    sorted_ids, order = torch.sort(ids, stable=True)
-    bounds = torch.searchsorted(
-        sorted_ids, torch.arange(n_seg + 1, dtype=torch.int32, device=dev))
-    tiles = torch.empty((n // SEGMENT_TILE, GRAD_COLS), dtype=torch.float32,
-                        device=dev)
-    out = torch.empty((n_seg, GRAD_COLS), dtype=torch.float32, device=dev)
-    fn = _build.load().segment_sum_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(rows.data_ptr(), order.data_ptr(), sorted_ids.data_ptr(),
-                 bounds.data_ptr(), tiles.data_ptr(), out.data_ptr(), n,
-                 n_seg, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
-                           f"{err}")
-    SEGMENT_SUM_LAUNCHES += 1
-    return out
+    with tracing.span("rt.bwd.segment_sum"):
+        if rows.device.type == "cpu":
+            return segment_sum_plain(ids, rows, n_seg)
+        dev = rows.device
+        ids = ids.reshape(-1)
+        _check("segment_sum ids", ids, (rows.shape[0],), torch.int32)
+        _check("segment_sum rows", rows, (ids.shape[0], GRAD_COLS))
+        if rows.data_ptr() % 16:      # the kernels read rows as float4
+            rows = rows.clone()
+        n = ids.shape[0]
+        sorted_ids, order = torch.sort(ids, stable=True)
+        bounds = torch.searchsorted(
+            sorted_ids,
+            torch.arange(n_seg + 1, dtype=torch.int32, device=dev))
+        tiles = torch.empty((n // SEGMENT_TILE, GRAD_COLS),
+                            dtype=torch.float32, device=dev)
+        out = torch.empty((n_seg, GRAD_COLS), dtype=torch.float32,
+                          device=dev)
+        fn = _build.load().segment_sum_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            err = fn(rows.data_ptr(), order.data_ptr(), sorted_ids.data_ptr(),
+                     bounds.data_ptr(), tiles.data_ptr(), out.data_ptr(), n,
+                     n_seg, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"segment_sum kernel launch failed: CUDA "
+                               f"error {err}")
+        SEGMENT_SUM_LAUNCHES += 1
+        return out
 
 
 def site_ids(res: Residuals):
@@ -490,128 +498,147 @@ def render_replay_bwd(scene: Scene, cfg: RenderConfig, res: Residuals, g,
     give the same bits). A CPU scene runs ``render_replay_bwd_plain``.
     ``_kernel`` pins the whole-table or the streamed kernel
     (``render_fwd.pick_kernel``)."""
+    with tracing.span("rt.bwd"):
+        row0, rows = _band(cfg, row0, rows)
+        dev = scene.device
+        if dev.type == "cpu":
+            return render_replay_bwd_plain(scene, cfg, res, g, row0, rows,
+                                           return_primal)
+        if dev.type != "cuda":
+            raise ValueError(f"render_bwd: scene on {dev}; the kernel needs a "
+                             f"CUDA device (its plain version the CPU)")
+        return _launch(scene, cfg, res, g, row0, rows, return_primal,
+                       _kernel)
+
+
+def _launch(scene: Scene, cfg: RenderConfig, res: Residuals, g, row0: int,
+            rows: int, return_primal: bool, pin):
+    """``render_replay_bwd`` on a CUDA scene. Spans: ``rt.bwd.pack`` (the
+    tables packed under autograd, the checks, the buffers), then for each
+    row band ``rt.bwd.launch`` (its launch or launches) and, on the
+    streamed route, ``segment_sum``'s; ``_pull_back``'s last."""
     global LAUNCHES, FREE_LAUNCHES, STREAMED_LAUNCHES
-    row0, rows = _band(cfg, row0, rows)
     dev = scene.device
-    if dev.type == "cpu":
-        return render_replay_bwd_plain(scene, cfg, res, g, row0, rows,
-                                       return_primal)
-    if dev.type != "cuda":
-        raise ValueError(f"render_bwd: scene on {dev}; the kernel needs a "
-                         f"CUDA device (its plain version the CPU)")
-
-    n_tri = scene.num_triangles
-    # CPU-ref ignores spheres entirely, as the forward kernel does
-    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
-    n_obj = n_tri + n_sph
-    W, A, B = cfg.width, cfg.aa_rays, cfg.bounces
-    streamed = pick_kernel(n_tri, scene.num_spheres, _kernel)
-    if streamed:
-        cols = n_sph * GRAD_COLS + CAM_COLS
-    else:
-        cols = n_obj * GRAD_COLS + CAM_COLS
-        if shared_bytes(n_obj, A) > SMEM_BUDGET_BYTES:
-            raise ValueError(
-                f"render_bwd: {n_obj} objects: the whole-table backward "
-                f"kernel needs {shared_bytes(n_obj, A)} B of shared memory "
-                f"(limit {SMEM_BUDGET_BYTES})")
-    bands = _row_bands(rows, W, A, B, cols, streamed)
-
-    with torch.enable_grad():
-        leaves = _detached(scene)
-        tables = pack_scene(leaves)
-    tri, sph, cam = (t.detach() for t in tables)
-    g = g.to(torch.float32).contiguous()
-    _check("tri", tri, (n_tri, TRI_COLS))
-    _check("sph", sph, (max(scene.num_spheres, 1), SPH_COLS))
-    _check("cam", cam, (CAM_COLS,))
-    _check("g", g, (rows, W, 3))
-    _check("res.prim_id", res.prim_id, (A, rows, W), torch.int32)
-    _check("res.lit_cnt", res.lit_cnt, (A, rows, W))
-    if B:
-        _check("res.bounce_id", res.bounce_id, (B, A, rows, W), torch.int32)
-
-    # one set of buffers, of the tallest band, reused band after band
-    h = max((n for _, n in bands), default=0)
-    split = not streamed and splits(cfg, rows, n_obj)
-    # the streamed kernel and the chain kernel take one thread per AA ray
-    # (the chain kernel over the chain-free launch's list walks it on that
-    # launch's grid)
-    ppb = pixels_per_block(A)
-    threads = (chain_blocks(h * W, A, split) if not streamed
-               else launch_blocks(h * W, ppb)) * THREADS
-    partial = torch.empty((threads // THREADS, cols), dtype=torch.float32,
-                          device=dev)
-    dlane = (torch.empty(((1 + B) * A * h * W, GRAD_COLS),
-                         dtype=torch.float32, device=dev)
-             if streamed else None)
-    chain = (torch.empty((CHAIN_FLOATS * B * threads,), dtype=torch.float32,
-                         device=dev) if B > REG_BOUNCES else None)
-    img = (torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
-           if return_primal else None)
-    launch = _declare(_build.load(), streamed)
-    if split:
-        # the chain-free launch's grid of tile ranges for each band, its partial
-        # rows and its lists of the pixels it leaves out (one a tile); the
-        # chain launch's partial rows are ``partial``
-        slots = free_slots(dev, n_obj)
-        grids = {n: free_grid(n * W, slots) for _, n in bands}
-        partial_free = torch.empty(
-            (max(b for b, _ in grids.values()), cols), dtype=torch.float32,
-            device=dev)
-        lists = torch.empty((threads,), dtype=torch.int32, device=dev)
-        counts = torch.empty((threads // THREADS,), dtype=torch.int32,
-                             device=dev)
-    totals = None
-    for o, n in bands:
-        if (o, n) == (0, rows):
-            g_b, res_b = g, res
-        else:
-            g_b = g[o:o + n].contiguous()
-            res_b = Residuals(*(t[..., o:o + n, :].contiguous() for t in res))
-        partial_b = partial[:launch_blocks(n * W, ppb) if streamed
-                            else chain_blocks(n * W, A, split)]
-        outs = [partial_b]
+    with tracing.span("rt.bwd.pack"):
+        n_tri = scene.num_triangles
+        # CPU-ref ignores spheres entirely, as the forward kernel does
+        n_sph = 0 if cfg.cpu_ref else scene.num_spheres
+        n_obj = n_tri + n_sph
+        W, A, B = cfg.width, cfg.aa_rays, cfg.bounces
+        streamed = pick_kernel(n_tri, scene.num_spheres, pin)
         if streamed:
-            # the kernel writes only the sites that hit a triangle: the rest
-            # of the band's rows must read zero
-            outs.insert(0, dlane[:(1 + B) * A * n * W].zero_())
-        ints, floats = launch_params(cfg, row0 + o, n, n_tri, n_sph,
-                                     return_primal)
-        tables_g = (tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
-                    g_b.data_ptr(), res_b.prim_id.data_ptr(),
-                    res_b.lit_cnt.data_ptr())
-        bid_ptr = res_b.bounce_id.data_ptr() if B else 0
-        img_ptr = 0 if img is None else img[o:o + n].data_ptr()
-        chain_ptr = 0 if chain is None else chain.data_ptr()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            if streamed:
-                err = launch(*tables_g, bid_ptr,
-                             *(t.data_ptr() for t in outs), img_ptr,
-                             chain_ptr, ints, floats, ppb, stream)
-            elif split:
-                free_b, per_block = grids[n]
-                err = launch["free"](*tables_g, partial_free.data_ptr(),
-                                     img_ptr, lists.data_ptr(),
-                                     counts.data_ptr(), ints, floats, free_b,
-                                     per_block, stream)
-                if err == 0:
-                    FREE_LAUNCHES += 1
-                    # one count a tile: as many as the chain launch's blocks
-                    off = torch.cumsum(counts[:partial_b.shape[0]], 0,
-                                       dtype=torch.int32)
-                    err = launch["chain"](
-                        *tables_g, bid_ptr, partial_b.data_ptr(), img_ptr,
-                        chain_ptr, lists.data_ptr(), off.data_ptr(), ints,
-                        floats, stream)
+            cols = n_sph * GRAD_COLS + CAM_COLS
+        else:
+            cols = n_obj * GRAD_COLS + CAM_COLS
+            if shared_bytes(n_obj, A) > SMEM_BUDGET_BYTES:
+                raise ValueError(
+                    f"render_bwd: {n_obj} objects: the whole-table backward "
+                    f"kernel needs {shared_bytes(n_obj, A)} B of shared "
+                    f"memory (limit {SMEM_BUDGET_BYTES})")
+        bands = _row_bands(rows, W, A, B, cols, streamed)
+
+        with torch.enable_grad():
+            leaves = _detached(scene)
+            tables = pack_scene(leaves)
+        tri, sph, cam = (t.detach() for t in tables)
+        g = g.to(torch.float32).contiguous()
+        _check("tri", tri, (n_tri, TRI_COLS))
+        _check("sph", sph, (max(scene.num_spheres, 1), SPH_COLS))
+        _check("cam", cam, (CAM_COLS,))
+        _check("g", g, (rows, W, 3))
+        _check("res.prim_id", res.prim_id, (A, rows, W), torch.int32)
+        _check("res.lit_cnt", res.lit_cnt, (A, rows, W))
+        if B:
+            _check("res.bounce_id", res.bounce_id, (B, A, rows, W),
+                   torch.int32)
+
+        # one set of buffers, of the tallest band, reused band after band
+        h = max((n for _, n in bands), default=0)
+        split = not streamed and splits(cfg, rows, n_obj)
+        # the streamed kernel and the chain kernel take one thread per AA ray
+        # (the chain kernel over the chain-free launch's list walks it on that
+        # launch's grid)
+        ppb = pixels_per_block(A)
+        threads = (chain_blocks(h * W, A, split) if not streamed
+                   else launch_blocks(h * W, ppb)) * THREADS
+        partial = torch.empty((threads // THREADS, cols), dtype=torch.float32,
+                              device=dev)
+        dlane = (torch.empty(((1 + B) * A * h * W, GRAD_COLS),
+                             dtype=torch.float32, device=dev)
+                 if streamed else None)
+        chain = (torch.empty((CHAIN_FLOATS * B * threads,),
+                             dtype=torch.float32, device=dev)
+                 if B > REG_BOUNCES else None)
+        img = (torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
+               if return_primal else None)
+        launch = _declare(_build.load(), streamed)
+        if split:
+            # the chain-free launch's grid of tile ranges for each band, its
+            # partial rows and its lists of the pixels it leaves out (one a
+            # tile); the chain launch's partial rows are ``partial``
+            slots = free_slots(dev, n_obj)
+            grids = {n: free_grid(n * W, slots) for _, n in bands}
+            partial_free = torch.empty(
+                (max(b for b, _ in grids.values()), cols), dtype=torch.float32,
+                device=dev)
+            lists = torch.empty((threads,), dtype=torch.int32, device=dev)
+            counts = torch.empty((threads // THREADS,), dtype=torch.int32,
+                                 device=dev)
+    totals = None
+    tracing.count("bwd.bands", len(bands))
+    for o, n in bands:
+        with tracing.span("rt.bwd.launch"):
+            if (o, n) == (0, rows):
+                g_b, res_b = g, res
             else:
-                err = launch["chain"](*tables_g, bid_ptr, partial_b.data_ptr(),
-                                      img_ptr, chain_ptr, 0, 0, ints, floats,
-                                      stream)
-        if err != 0:
-            raise RuntimeError(f"render_bwd kernel launch failed: CUDA error "
-                               f"{err}")
+                g_b = g[o:o + n].contiguous()
+                res_b = Residuals(*(t[..., o:o + n, :].contiguous()
+                                    for t in res))
+            partial_b = partial[:launch_blocks(n * W, ppb) if streamed
+                                else chain_blocks(n * W, A, split)]
+            outs = [partial_b]
+            if streamed:
+                # the kernel writes only the sites that hit a triangle: the
+                # rest of the band's rows must read zero
+                outs.insert(0, dlane[:(1 + B) * A * n * W].zero_())
+            ints, floats = launch_params(cfg, row0 + o, n, n_tri, n_sph,
+                                         return_primal)
+            tables_g = (tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
+                        g_b.data_ptr(), res_b.prim_id.data_ptr(),
+                        res_b.lit_cnt.data_ptr())
+            bid_ptr = res_b.bounce_id.data_ptr() if B else 0
+            img_ptr = 0 if img is None else img[o:o + n].data_ptr()
+            chain_ptr = 0 if chain is None else chain.data_ptr()
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                if streamed:
+                    err = launch(*tables_g, bid_ptr,
+                                 *(t.data_ptr() for t in outs), img_ptr,
+                                 chain_ptr, ints, floats, ppb, stream)
+                elif split:
+                    free_b, per_block = grids[n]
+                    err = launch["free"](*tables_g, partial_free.data_ptr(),
+                                         img_ptr, lists.data_ptr(),
+                                         counts.data_ptr(), ints, floats,
+                                         free_b, per_block, stream)
+                    if err == 0:
+                        FREE_LAUNCHES += 1
+                        # one count a tile: as many as the chain launch's
+                        # blocks
+                        off = torch.cumsum(counts[:partial_b.shape[0]], 0,
+                                           dtype=torch.int32)
+                        err = launch["chain"](
+                            *tables_g, bid_ptr, partial_b.data_ptr(), img_ptr,
+                            chain_ptr, lists.data_ptr(), off.data_ptr(), ints,
+                            floats, stream)
+                else:
+                    err = launch["chain"](*tables_g, bid_ptr,
+                                          partial_b.data_ptr(), img_ptr,
+                                          chain_ptr, 0, 0, ints, floats,
+                                          stream)
+            if err != 0:
+                raise RuntimeError(f"render_bwd kernel launch failed: CUDA "
+                                   f"error {err}")
         if streamed:
             STREAMED_LAUNCHES += 1
             cot = streamed_table_cotangents(

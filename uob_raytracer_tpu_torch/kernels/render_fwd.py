@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import RenderConfig
 from ..ops.camera import gen_primary_rays
 from ..ops.image import pack_argb
@@ -388,66 +389,72 @@ def blocks_per_sm(scene: Scene, cfg: RenderConfig, quads=None) -> int:
 def _launch(scene: Scene, cfg: RenderConfig, row0: int, rows: int, quads,
             record: bool, pin=None):
     """One launch of the whole-table or the streamed forward kernel on the
-    scene's CUDA device: (image, packed, Residuals or None)."""
+    scene's CUDA device: (image, packed, Residuals or None). Spans:
+    ``rt.fwd.pack`` (the tables, their checks and the outputs' buffers),
+    then ``rt.fwd.launch``."""
     global LAUNCHES, STREAMED_LAUNCHES
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"render_fwd: scene on {dev}; the kernel needs a "
                          f"CUDA device (its plain version the CPU)")
 
-    n_tri = scene.num_triangles
-    # CPU-ref ignores spheres entirely (the vestigial path predates them)
-    n_sph = 0 if cfg.cpu_ref else scene.num_spheres
-    streamed = pick_kernel(n_tri, scene.num_spheres, pin)
-    # the tables feed the kernel's raw pointers; the backward pulls its
-    # cotangents through pack_scene again (render.py), so no graph here
-    with torch.no_grad():
-        tri, sph, cam = pack_scene(scene)
-        shd = None if quads is None else pack_shadow(scene, quads)
-    n_shd = 0 if shd is None else shd.shape[0]
-    n_quads = 0 if quads is None else len(quads[0])
-    smem = shared_bytes(n_tri, n_sph, n_shd, cfg.aa_rays)
-    if not streamed and smem > SMEM_BUDGET_BYTES:
-        # only a pinned whole-table kernel gets here: use_streamed sends
-        # such a scene to the streamed kernel
-        raise ValueError(
-            f"scene tables need {smem} B of shared memory, above the "
-            f"{SMEM_BUDGET_BYTES} B a block of the whole-table kernel may "
-            f"use")
-    _check("tri", tri, (n_tri, TRI_COLS))
-    _check("sph", sph, (max(scene.num_spheres, 1), SPH_COLS))
-    _check("cam", cam, (CAM_COLS,))
-    if shd is not None:
-        _check("shd", shd, (n_shd, SHD_COLS))
+    with tracing.span("rt.fwd.pack"):
+        n_tri = scene.num_triangles
+        # CPU-ref ignores spheres entirely (the vestigial path predates them)
+        n_sph = 0 if cfg.cpu_ref else scene.num_spheres
+        streamed = pick_kernel(n_tri, scene.num_spheres, pin)
+        # the tables feed the kernel's raw pointers; the backward pulls its
+        # cotangents through pack_scene again (render.py), so no graph here
+        with torch.no_grad():
+            tri, sph, cam = pack_scene(scene)
+            shd = None if quads is None else pack_shadow(scene, quads)
+        n_shd = 0 if shd is None else shd.shape[0]
+        n_quads = 0 if quads is None else len(quads[0])
+        smem = shared_bytes(n_tri, n_sph, n_shd, cfg.aa_rays)
+        if not streamed and smem > SMEM_BUDGET_BYTES:
+            # only a pinned whole-table kernel gets here: use_streamed sends
+            # such a scene to the streamed kernel
+            raise ValueError(
+                f"scene tables need {smem} B of shared memory, above the "
+                f"{SMEM_BUDGET_BYTES} B a block of the whole-table kernel may "
+                f"use")
+        _check("tri", tri, (n_tri, TRI_COLS))
+        _check("sph", sph, (max(scene.num_spheres, 1), SPH_COLS))
+        _check("cam", cam, (CAM_COLS,))
+        if shd is not None:
+            _check("shd", shd, (n_shd, SHD_COLS))
 
-    W, A = cfg.width, cfg.aa_rays
-    img = torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
-    packed = torch.empty((rows, W), dtype=torch.uint32, device=dev)
-    res = None
-    if record:
-        # every element is written by the kernel: steps a ray never ran
-        # get -1, a ray that shades nothing gets lit 0
-        res = Residuals(
-            prim_id=torch.empty((A, rows, W), dtype=torch.int32, device=dev),
-            lit_cnt=torch.empty((A, rows, W), dtype=torch.float32, device=dev),
-            bounce_id=torch.empty((cfg.bounces, A, rows, W),
-                                  dtype=torch.int32, device=dev))
-    ints, floats = launch_params(cfg, row0, rows, n_tri, n_sph, n_quads,
-                                 n_shd)
-    launch = _declare(_build.load(), streamed)
-    with torch.cuda.device(dev):
-        err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
-                     0 if shd is None else shd.data_ptr(), img.data_ptr(),
-                     packed.data_ptr(),
-                     *((0, 0, 0) if res is None else
-                       (t.data_ptr() for t in res)),
-                     ints, floats,
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"render_fwd kernel launch failed: CUDA error "
-                           f"{err}")
-    if streamed:
-        STREAMED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+        W, A = cfg.width, cfg.aa_rays
+        img = torch.empty((rows, W, 3), dtype=torch.float32, device=dev)
+        packed = torch.empty((rows, W), dtype=torch.uint32, device=dev)
+        res = None
+        if record:
+            # every element is written by the kernel: steps a ray never ran
+            # get -1, a ray that shades nothing gets lit 0
+            res = Residuals(
+                prim_id=torch.empty((A, rows, W), dtype=torch.int32,
+                                    device=dev),
+                lit_cnt=torch.empty((A, rows, W), dtype=torch.float32,
+                                    device=dev),
+                bounce_id=torch.empty((cfg.bounces, A, rows, W),
+                                      dtype=torch.int32, device=dev))
+    with tracing.span("rt.fwd.launch"):
+        ints, floats = launch_params(cfg, row0, rows, n_tri, n_sph, n_quads,
+                                     n_shd)
+        launch = _declare(_build.load(), streamed)
+        with torch.cuda.device(dev):
+            err = launch(tri.data_ptr(), sph.data_ptr(), cam.data_ptr(),
+                         0 if shd is None else shd.data_ptr(), img.data_ptr(),
+                         packed.data_ptr(),
+                         *((0, 0, 0) if res is None else
+                           (t.data_ptr() for t in res)),
+                         ints, floats,
+                         torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"render_fwd kernel launch failed: CUDA error "
+                               f"{err}")
+        if streamed:
+            STREAMED_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return img, packed, res

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from .. import tracing
 from ..config import RenderConfig
 from ..kernels.render_fwd import render_flat
 from ..ops.quads import detect_shadow_quads, validate_shadow_quads
@@ -65,34 +66,39 @@ def render_image_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh | None,
     tp pipeline scans triangles and ignores it.
 
     ``mesh=None`` and a 1x1 mesh are ``render.render_image``."""
-    fused = _resolve_backend(backend, scene) == "fused"
-    if shadow_quads == "auto":
-        shadow_quads = detect_shadow_quads(scene) if fused else None
-    if shadow_quads is not None:
-        validate_shadow_quads(scene, shadow_quads)
-    mesh = _check_mesh(mesh, scene)
-    if mesh is None:
-        return render_image(scene, cfg, chunk_rows, backend, shadow_quads)
-    if cfg.height % mesh.dp:
-        raise ValueError(f"height {cfg.height} not divisible by dp={mesh.dp}")
-    if mesh.tp > 1 and scene.num_triangles % mesh.tp:
-        raise ValueError("triangle count not divisible by tp; use "
-                         "pad_triangles")
-    rows = cfg.height // mesh.dp
-    row0 = mesh.dp_index * rows
-    scene = Scene(**dict(zip(_LEAVES, replicate(
-        [getattr(scene, k) for k in _LEAVES], mesh.world))))
-    if mesh.tp == 1:
-        band = render_image(scene, cfg, chunk_rows, backend, shadow_quads,
-                            row0, rows)
-    else:
-        t_local = scene.num_triangles // mesh.tp
-        lo = mesh.tp_index * t_local
-        shard = dataclasses.replace(scene, **{
-            k: getattr(scene, k)[lo:lo + t_local] for k in _TRI_LEAVES})
-        colors = render_flat(shard, cfg, chunk_rows, row0, rows,
-                             tri_axis=mesh.tp_group,
-                             tri_pass="kernel" if fused else "torch",
-                             tri_offset=lo)
-        band = colors.sum(dim=2) / float(colors.shape[2])
-    return gather_rows(band, mesh.dp_group, mesh.dp_index)
+    with tracing.span("rt.render"):
+        fused = _resolve_backend(backend, scene) == "fused"
+        if shadow_quads == "auto" and not fused:
+            shadow_quads = None
+        if shadow_quads is not None:
+            with tracing.span("rt.render.quads"):
+                if shadow_quads == "auto":
+                    shadow_quads = detect_shadow_quads(scene)
+                validate_shadow_quads(scene, shadow_quads)
+        mesh = _check_mesh(mesh, scene)
+        if mesh is None:
+            return render_image(scene, cfg, chunk_rows, backend, shadow_quads)
+        if cfg.height % mesh.dp:
+            raise ValueError(f"height {cfg.height} not divisible by "
+                             f"dp={mesh.dp}")
+        if mesh.tp > 1 and scene.num_triangles % mesh.tp:
+            raise ValueError("triangle count not divisible by tp; use "
+                             "pad_triangles")
+        rows = cfg.height // mesh.dp
+        row0 = mesh.dp_index * rows
+        scene = Scene(**dict(zip(_LEAVES, replicate(
+            [getattr(scene, k) for k in _LEAVES], mesh.world))))
+        if mesh.tp == 1:
+            band = render_image(scene, cfg, chunk_rows, backend,
+                                shadow_quads, row0, rows)
+        else:
+            t_local = scene.num_triangles // mesh.tp
+            lo = mesh.tp_index * t_local
+            shard = dataclasses.replace(scene, **{
+                k: getattr(scene, k)[lo:lo + t_local] for k in _TRI_LEAVES})
+            colors = render_flat(shard, cfg, chunk_rows, row0, rows,
+                                 tri_axis=mesh.tp_group,
+                                 tri_pass="kernel" if fused else "torch",
+                                 tri_offset=lo)
+            band = colors.sum(dim=2) / float(colors.shape[2])
+        return gather_rows(band, mesh.dp_group, mesh.dp_index)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..config import RenderConfig
 from ..scene import Scene
 from .render import render_image_sharded
@@ -70,13 +71,14 @@ def train_step(scene: Scene, target: torch.Tensor, cfg: RenderConfig,
                backend: str = "auto") -> TrainOut:
     """One SGD step on the selected scene leaves. On a mesh every rank
     calls it with the same arguments and returns the same scene."""
-    live, params = _with_params(scene, trainable)
-    loss = image_loss(live, target, cfg, mesh, backend)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    new = {k: (p - lr * g).detach()
-           for (k, p), g in zip(params.items(), grads)}
-    return TrainOut(scene=dataclasses.replace(scene, **new),
-                    loss=loss.detach())
+    with tracing.span("rt.train_step", step=True):
+        live, params = _with_params(scene, trainable)
+        loss = image_loss(live, target, cfg, mesh, backend)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        new = {k: (p - lr * g).detach()
+               for (k, p), g in zip(params.items(), grads)}
+        return TrainOut(scene=dataclasses.replace(scene, **new),
+                        loss=loss.detach())
 
 
 # The BASELINE config-5 parameter set with per-leaf Adam learning rates:

@@ -40,11 +40,11 @@ import time
 import numpy as np
 import torch
 
+from . import tracing
 from .config import RenderConfig
 from .interactive import CameraController
 from .kernels import render_fwd
 from .ops.image import to_u8
-from .ops.quads import detect_shadow_quads
 from .render import render
 from .scene import add_triangles, animate_light, cornell_box, load_obj
 
@@ -88,18 +88,20 @@ class LiveLoop:
         float image [H, W, 3] is fetched to the host. ``split`` keeps the
         host seconds up to render()'s return and of the fetch, which on the
         card waits for the kernel."""
-        t0 = time.perf_counter()
-        self.light_x, self.lor = animate_light(self.light_x, self.lor)
-        s = self.ctl.apply(self.scene)
-        light = np.array([self.light_x, *self._light_yz], dtype=np.float32)
-        s = dataclasses.replace(
-            s, light_pos=torch.as_tensor(light, device=s.device))
-        out = render(s, self.cfg)
-        t1 = time.perf_counter()
-        img = out.image.cpu().numpy()     # the fetch = the SDL present
-        self.split = (t1 - t0, time.perf_counter() - t1)
-        self.frame_scene = s
-        return img
+        with tracing.span("rt.tick", step=True):
+            t0 = time.perf_counter()
+            self.light_x, self.lor = animate_light(self.light_x, self.lor)
+            s = self.ctl.apply(self.scene)
+            light = np.array([self.light_x, *self._light_yz],
+                             dtype=np.float32)
+            s = dataclasses.replace(
+                s, light_pos=torch.as_tensor(light, device=s.device))
+            out = render(s, self.cfg)
+            t1 = time.perf_counter()
+            img = out.image.cpu().numpy()     # the fetch = the SDL present
+            self.split = (t1 - t0, time.perf_counter() - t1)
+            self.frame_scene = s
+            return img
 
 
 def _u8(img: np.ndarray) -> np.ndarray:
@@ -278,10 +280,11 @@ def latency_bench(args, loop: LiveLoop | None = None,
 
     Beside the latency: the forward kernel's device time per frame (on the
     card, from torch.profiler), the host split of a frame (quad detection,
-    which ``render()`` runs in Python on every call; the rest of the work up
-    to ``render()``'s return: the light, the camera, packing and the
-    launch; the fetch, which waits for the kernel and copies the image to
-    the host), and the floor of a 1-element fetch (``.item()``)."""
+    which ``render()`` runs in Python on every call, from the frame's
+    ``rt.render.quads`` spans; the rest of the work up to ``render()``'s
+    return: the light, the camera, packing and the launch; the fetch, which
+    waits for the kernel and copies the image to the host), and the floor
+    of a 1-element fetch (``.item()``)."""
     loop = loop or LiveLoop(build_scene(args), config(args))
     cfg, dev = loop.cfg, loop.scene.device
     on_card = dev.type == "cuda"
@@ -298,28 +301,24 @@ def latency_bench(args, loop: LiveLoop | None = None,
     lats, host, fetch = [], [], []
     finite = True
     launches = render_fwd.LAUNCHES + render_fwd.STREAMED_LAUNCHES
-    for name in keys:
-        t0 = time.perf_counter()
-        loop.ctl.key(name)            # the keypress
-        img = loop.tick()             # re-render + fetch
-        lats.append((time.perf_counter() - t0) * 1e3)
-        host.append(loop.split[0] * 1e3)
-        fetch.append(loop.split[1] * 1e3)
-        finite = finite and bool(np.isfinite(img).all())
+    with tracing.recorded() as spans:
+        for name in keys:
+            t0 = time.perf_counter()
+            loop.ctl.key(name)            # the keypress
+            img = loop.tick()             # re-render + fetch
+            lats.append((time.perf_counter() - t0) * 1e3)
+            host.append(loop.split[0] * 1e3)
+            fetch.append(loop.split[1] * 1e3)
+            finite = finite and bool(np.isfinite(img).all())
     launches = render_fwd.LAUNCHES + render_fwd.STREAMED_LAUNCHES - launches
 
     # quad detection happens inside render() (on a CUDA scene's fused
-    # path): timed apart on the last frame's scene, and taken out of the
-    # host part
-    detects = on_card and not cfg.cpu_ref
-    detect_ms = 0.0
-    if detects:
-        ts = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            detect_shadow_quads(loop.frame_scene)
-            ts.append((time.perf_counter() - t0) * 1e3)
-        detect_ms = statistics.median(ts)
+    # path): each frame's rt.render.quads spans, taken out of the host part
+    quads_ns = {r.step: 0 for r in spans if r.name == "rt.tick"}
+    for r in spans:
+        if r.name == "rt.render.quads":
+            quads_ns[r.step] += r.ns
+    detect_ms = statistics.median(quads_ns.values()) * 1e-6
     lats_ms = sorted(lats)
     n = len(lats_ms)
     p50 = lats_ms[n // 2]
@@ -345,8 +344,8 @@ def latency_bench(args, loop: LiveLoop | None = None,
         "note": "keypress -> updated frame on the host through "
                 "LiveLoop.tick (key, light step, camera, render() with "
                 "quad detection, fetch of the float image); host split: "
-                "medians of the events' frames, quad detection timed "
-                "apart on the last frame's scene",
+                "medians of the events' frames, quad detection from each "
+                "frame's rt.render.quads spans",
     }
     dev_ms = out["forward_device_ms"]
     print(f"latency {cfg.width}^2 {out['config']} on "

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import tracing
 from .config import RenderConfig
 from .kernels.render_bwd import render_replay_bwd
 from .kernels.render_fwd import (  # noqa: F401  (render_flat: public name)
@@ -74,16 +75,19 @@ class _FusedRender(torch.autograd.Function):
         on_cpu = scene.device.type == "cpu"
         if record:
             if on_cpu:
-                img, packed, res = render_fused_res_plain(scene, cfg, row0,
-                                                          rows, chunk_rows)
+                # the plain version stands in for the kernel's launch
+                with tracing.span("rt.fwd.launch"):
+                    img, packed, res = render_fused_res_plain(
+                        scene, cfg, row0, rows, chunk_rows)
             else:
                 img, packed, res = render_fused_res(scene, cfg, row0, rows,
                                                     quads)
             ctx.save_for_backward(*leaves, *res)
             ctx.cfg, ctx.band = cfg, (row0, rows)
         elif on_cpu:
-            img, packed = render_fused_plain(scene, cfg, row0, rows,
-                                             chunk_rows)
+            with tracing.span("rt.fwd.launch"):
+                img, packed = render_fused_plain(scene, cfg, row0, rows,
+                                                 chunk_rows)
         else:
             img, packed = render_fused_raw(scene, cfg, row0, rows, quads)
         ctx.mark_non_differentiable(packed)
@@ -133,10 +137,11 @@ def render_image(scene: Scene, cfg: RenderConfig,
     parallelogram rows for the kernel's occlusion scan (~2x fewer shadow
     rows on Cornell). Affects only boundary-epsilon sample rays vs the
     per-triangle scan; the torch backend ignores it."""
-    if _resolve_backend(backend, scene) == "torch":
-        row0, rows = _band(cfg, row0, rows)
-        return render_fused_plain(scene, cfg, row0, rows, chunk_rows)[0]
-    return _fused(scene, cfg, shadow_quads, row0, rows, chunk_rows)[0]
+    with tracing.span("rt.render"):
+        if _resolve_backend(backend, scene) == "torch":
+            row0, rows = _band(cfg, row0, rows)
+            return render_fused_plain(scene, cfg, row0, rows, chunk_rows)[0]
+        return _fused(scene, cfg, shadow_quads, row0, rows, chunk_rows)[0]
 
 
 def render(scene: Scene, cfg: RenderConfig,
@@ -155,23 +160,29 @@ def render(scene: Scene, cfg: RenderConfig,
     validation read the vertices to the host and run in Python on every
     call; a caller that renders one scene many times detects once and
     passes the pairing to ``render_image``."""
-    backend = _resolve_backend(backend, scene)
-    if shadow_quads == "auto":
-        # only the kernel reads a pairing; its plain versions scan triangles
-        if (backend == "fused" and scene.device.type == "cuda"
-                and not cfg.cpu_ref):
-            shadow_quads = detect_shadow_quads(scene)
+    with tracing.span("rt.render"):
+        backend = _resolve_backend(backend, scene)
+        if shadow_quads == "auto":
+            # only the kernel reads a pairing; its plain versions scan
+            # triangles
+            if (backend == "fused" and scene.device.type == "cuda"
+                    and not cfg.cpu_ref):
+                with tracing.span("rt.render.quads"):
+                    shadow_quads = detect_shadow_quads(scene)
+            else:
+                shadow_quads = None
+        elif shadow_quads is not None:
+            with tracing.span("rt.render.quads"):
+                validate_shadow_quads(scene, shadow_quads)
+        if backend == "torch":
+            img, packed = render_fused_plain(scene, cfg,
+                                             chunk_rows=chunk_rows)
         else:
-            shadow_quads = None
-    elif shadow_quads is not None:
-        validate_shadow_quads(scene, shadow_quads)
-    if backend == "torch":
-        img, packed = render_fused_plain(scene, cfg, chunk_rows=chunk_rows)
-    else:
-        # one launch writes both outputs; the packed buffer equals
-        # pack_argb of the image (chip_smoke.py checks it on the card)
-        img, packed = _fused(scene, cfg, shadow_quads, chunk_rows=chunk_rows)
-    return RenderResult(image=img, packed=packed)
+            # one launch writes both outputs; the packed buffer equals
+            # pack_argb of the image (chip_smoke.py checks it on the card)
+            img, packed = _fused(scene, cfg, shadow_quads,
+                                 chunk_rows=chunk_rows)
+        return RenderResult(image=img, packed=packed)
 
 
 def render_packed(scene: Scene, cfg: RenderConfig) -> torch.Tensor:

@@ -27,7 +27,9 @@ import torch
 import uob_raytracer_tpu_torch as trt
 from uob_raytracer_tpu_torch import ShadingModel, flops
 from uob_raytracer_tpu_torch.kernels import render_fwd as tfwd
+from uob_raytracer_tpu_torch.ops.image import pack_argb
 from uob_raytracer_tpu_torch.ops.quads import detect_shadow_quads
+from conftest import assert_images_match
 
 F = np.float32
 THREADS, WARP, CHUNK = tfwd.THREADS, 32, 8
@@ -364,3 +366,43 @@ def test_k1_equals_k3f_on_card_row_band(cuda_device):
     _both_kernels(scene, cfg, detect_shadow_quads(scene), row0=13, rows=27)
     assert tfwd.LAUNCHES == before + 2
     assert tfwd.blocks_per_sm(scene, cfg, detect_shadow_quads(scene)) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quads", [True, False], ids=["quads", "triangles"])
+@pytest.mark.parametrize("samples", [1, 3, 4, 5, 8, 9, 10])
+@pytest.mark.parametrize("n_tri", [26, 600])
+def test_k3f_chunked_shadow_pass_equals_k1_on_card(cuda_device, n_tri,
+                                                   samples, quads):
+    """K3f sweeps the occlusion table once per chunk of samples (4), K1
+    scans its rows once per chunk of 8: image, pack and record bit for bit
+    K1's, on both sides of either chunk's edge (1, 3, 4, 5, 8, 9 and 10
+    samples), with the quad rows and without."""
+    from uob_raytracer_tpu_torch.debug import dense_scene
+    scene = dense_scene(n_tri, device=cuda_device)
+    cfg = trt.RenderConfig(width=64, height=48, shadow_samples=samples,
+                           bounces=2)
+    _both_kernels(scene, cfg, detect_shadow_quads(scene) if quads else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", [3, 10])
+def test_k3f_within_the_parity_budget_on_card(cuda_device, samples):
+    """K3f on a scene only it takes (1,100 triangles) against its plain
+    version: the image within ``assert_images_match``'s budget (PARITY.md),
+    the pack exact, the record within 0.5%."""
+    from uob_raytracer_tpu_torch.debug import dense_scene
+    scene = dense_scene(1100, device=cuda_device)
+    cfg = trt.RenderConfig(width=96, height=20, shadow_samples=samples,
+                           bounces=2)
+    assert tfwd.use_streamed(scene.num_triangles, scene.num_spheres)
+    ref, _, ref_res = tfwd.render_fused_res_plain(scene, cfg)
+    img, packed, res = tfwd.render_fused_res(scene, cfg)
+    torch.cuda.synchronize()
+    assert_images_match(img.cpu().numpy(), ref.cpu().numpy(),
+                        what=f"K3f S={samples}")
+    assert torch.equal(packed.view(torch.int32),
+                       pack_argb(img).view(torch.int32))
+    for a, b in zip(res, ref_res):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (a != b).float().mean() <= 0.005

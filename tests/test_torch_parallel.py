@@ -260,6 +260,14 @@ def test_train_step_on_mesh_reduces_loss(dp_run):
                                live.light_pos.numpy(), rtol=1e-5, atol=1e-6)
 
 
+def test_train_step_on_mesh_runs_eagerly(dp_run):
+    """A step on a mesh of several ranks is never captured: every rank
+    counts its five steps as eager."""
+    outs = dp_run[-1]
+    for r in range(4):
+        assert outs[r]["train_kinds"].tolist() == [5, 0, 0]
+
+
 def test_fit_on_mesh(dp_run):
     _, tsc, cfg, target, outs = dp_run
     fitted, losses = tpar.fit(tsc, target, cfg, steps=2,

@@ -161,7 +161,8 @@ def test_cpu_train_step_gives_the_layer_tree():
     names = tracing.by_name(out["spans"])
     assert names["rt.train_step"]["total_ms"] >= (
         names["rt.render"]["total_ms"] + names["rt.bwd"]["total_ms"])
-    assert out["counts"] == {}          # the plain versions launch nothing
+    # the plain versions launch nothing; a CPU step runs eagerly
+    assert out["counts"] == {"train.eager": 1}
 
 
 def test_render_and_live_loop_spans():
@@ -318,20 +319,23 @@ def cuda_device():
 @pytest.mark.cuda
 def test_train_step_on_card_nests_the_backward_thread(cuda_device):
     """On the card the autograd engine runs ``_FusedRender.backward`` on its
-    device thread: every ``rt.bwd`` span has ``rt.train_step`` as an
-    ancestor, the streamed route's spans and launches show, and the spans
-    change nothing the step computes."""
+    device thread: on an eager step (the first call with a key) every
+    ``rt.bwd`` span has ``rt.train_step`` as an ancestor, the streamed
+    route's spans and launches show, and the spans change nothing the step
+    computes. Replayed steps (from the key's third call on) count as
+    replays, add the captured step's launches to the kernels' counters,
+    open ``rt.train_step`` alone and wait for nothing."""
     from uob_raytracer_tpu_torch.debug import dense_scene
+    from uob_raytracer_tpu_torch.parallel import train
+    train._graph = None
     scene = dense_scene(600, device=cuda_device)
     cfg = RenderConfig(width=32, height=32, shadow_samples=2, bounces=2)
     target = torch.zeros((32, 32, 3), device=cuda_device)
-    plain = train_step(scene, target, cfg)
+    plain = train._step(scene, target, cfg, None, 1e-2, train.TRAINABLE,
+                        "auto")
     tracing.enable(waits=True)
-    for _ in range(3):
-        traced = train_step(scene, target, cfg)
+    traced = train_step(scene, target, cfg)
     out = tracing.drain()        # before the synchronise, itself a wait
-    tracing.disable()
-    torch.cuda.synchronize()
     by_id = {r.id: r for r in out["spans"]}
 
     def ancestors(r):
@@ -346,12 +350,32 @@ def test_train_step_on_card_nests_the_backward_thread(cuda_device):
     names = tracing.by_name(out["spans"])
     for n in ("rt.fwd.pack", "rt.fwd.launch", "rt.bwd.pack",
               "rt.bwd.launch", "rt.bwd.segment_sum", "rt.bwd.pull_back"):
-        assert names[n]["n"] == 3, n
-    assert out["counts"]["bwd.bands"] == 3
-    assert out["counts"]["launches.K3f render_fwd_streamed_kernel"] == 3
+        assert names[n]["n"] == 1, n
+    assert out["counts"]["bwd.bands"] == 1
+    assert out["counts"]["train.eager"] == 1
+    assert out["counts"]["launches.K3f render_fwd_streamed_kernel"] == 1
     assert "waits.outside" not in out["counts"]
+
+    train_step(scene, target, cfg)                # the capture
+    assert tracing.drain()["counts"]["train.graph.capture"] == 1
+    for _ in range(3):
+        replayed = train_step(scene, target, cfg)
+    out = tracing.drain()
+    tracing.disable()
+    torch.cuda.synchronize()
+    train._graph = None
+    assert {k: v for k, v in out["counts"].items()
+            if not k.startswith("launches.")} == {"train.graph.replay": 3}
+    assert {k: v for k, v in out["counts"].items()
+            if k.startswith("launches.")} == {
+        "launches.K3f render_fwd_streamed_kernel": 3,
+        "launches.K3b/K3b deep render_bwd_streamed_kernel": 3,
+        "launches.segment_sum_tiles_kernel + segment_sum_runs_kernel": 3}
+    assert [r.name for r in out["spans"]] == ["rt.train_step"] * 3
     for k in ("tri_v0", "light_pos", "yaw"):
         assert torch.equal(getattr(plain.scene, k), getattr(traced.scene, k))
+        assert torch.equal(getattr(traced.scene, k),
+                           getattr(replayed.scene, k))
 
 
 @pytest.mark.cuda
@@ -363,6 +387,8 @@ def test_real_waits_on_card_count_under_their_span(cuda_device, monkeypatch):
     (the autograd engine's device thread, inside ``rt.bwd.segment_sum``)."""
     from uob_raytracer_tpu_torch.debug import dense_scene
     from uob_raytracer_tpu_torch.ops import quads
+    from uob_raytracer_tpu_torch.parallel import train
+    train._graph = None          # the warm step below is its key's first
     real, planted = render_bwd._check, []
 
     def check(name, t, *args):
@@ -383,7 +409,9 @@ def test_real_waits_on_card_count_under_their_span(cuda_device, monkeypatch):
         rt.render(box, cfg)
         n_quads = tracing.drain()
         planted.clear()
-        train_step(dense, target, cfg)
+        # another learning rate is another key, whose first step is eager
+        # (a wait inside a capture would fail it)
+        train_step(dense, target, cfg, lr=2e-2)
         n_bwd = tracing.drain()
     finally:
         tracing.disable()

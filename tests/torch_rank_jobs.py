@@ -17,6 +17,7 @@ import torch
 
 import uob_raytracer_tpu_torch as trt
 from uob_raytracer_tpu_torch import parallel as tpar
+from uob_raytracer_tpu_torch import tracing
 from uob_raytracer_tpu_torch.scene import load_scene, scene_to_numpy
 
 GRAD_LEAVES = ("light_pos", "light_color", "tri_v0", "tri_v1", "tri_v2",
@@ -57,11 +58,18 @@ def run_job(rank: int, workdir: str) -> None:
     if "train" in job:
         tr = job["train"]
         live, losses = scene, []
+        tracing.enable()
         for _ in range(tr["steps"]):
             live, loss = tpar.train_step(live, target, cfg, mesh, lr=tr["lr"],
                                          trainable=tuple(tr["trainable"]))
             losses.append(loss.item())
+        counts = tracing.drain()["counts"]
+        tracing.disable()
         out["train_losses"] = np.float32(losses)
+        # how the steps ran: (eager, captured, replayed)
+        out["train_kinds"] = np.int64([counts.get(f"train.{k}", 0) for k in
+                                       ("eager", "graph.capture",
+                                        "graph.replay")])
         for k, v in scene_to_numpy(live).items():
             out[f"trained_{k}"] = v
     if "fit" in job:

@@ -33,11 +33,24 @@
 //   scan, so no thread leaves early (threads past the ragged edge or past
 //   the block's last whole pixel carry no ray and only load) and every
 //   loop around a scan is block-uniform: the bounce loop runs while ANY
-//   ray of the block is active and the occlusion scan of sample s runs
-//   while any ray of the block still looks for an occluder
-//   (__syncthreads_or), with finished rays masked. A ray does exactly the
-//   tests it does in the whole-table kernel, up to the end of the tile in
-//   which its sample met its first occluder.
+//   ray of the block is active and the occlusion scan of a chunk of
+//   samples runs while any ray of the block still has a sample of the
+//   chunk that no row has occluded (__syncthreads_or), with finished rays
+//   masked.
+// - The soft-shadow pass sweeps the occlusion table once per chunk of
+//   kChunk samples, not once per sample, in the whole-table kernel's order
+//   (render_fwd.cu: occluded_samples): the chunk's sample directions are
+//   drawn into registers in sample order, with a bit mask of the samples
+//   still live; for each row that casts a shadow its invariants are
+//   computed once (occ_row_invariants) and the sample part runs for every
+//   sample of the chunk (occ_row_sample), the chunk's size a template
+//   argument so that its tests unroll with no branch (unoccluded); the
+//   spheres come after the rows, for the samples still live. The lit count
+//   is S less the occluded samples, which does not depend on the order of
+//   the tests, and each test is occ_row's operations in occ_row's order:
+//   the count is the per-sample scan's, bit for bit. On the 8,192-triangle
+//   scene at 3 samples a shading ray sweeps the table once where it swept
+//   it three times.
 // - The primary hit keeps its shared-origin form: each thread computes the
 //   seven invariants of the tile row it loaded. The winner's attributes
 //   (normal, colour, material) are read from device memory by index after
@@ -59,6 +72,55 @@
 #include "fwd_common.cuh"
 
 namespace {
+
+// Sample rays of the soft-shadow pass held in registers at a time. On the
+// H100 (ptxas, and K3f's device ms on 8,192 triangles at 128x128, PERF.md):
+// 3, 4 and 5 take 128 registers and 4 blocks an SM with 12-84 B of spills
+// and ran fastest (4: fastest at 8 samples, within 1% of 3 at 3 samples);
+// 6 and 8 take 159 registers and 3 blocks an SM, which puts the 512 blocks
+// of a 128x128 frame at 2x2 AA in two waves, 22% slower.
+constexpr int kChunk = 4;
+
+// The samples of one chunk of N (the same for every thread of the block)
+// that no occluder row and no sphere occludes, from `live`, the chunk's
+// samples still unoccluded. The rows are swept tile by tile while any
+// thread of the block has a live sample (block-uniform: its barrier is the
+// tile's); for each row that casts a shadow, its invariants once, then the
+// sample part of all N samples into a mask, with no branch between them (a
+// sample already occluded is tested again and stays occluded). Then the
+// spheres, for the samples still live.
+template <int N>
+__device__ __forceinline__ unsigned unoccluded(const Params& P, float* tile, const float* tbl,
+                                               const OccTable& o, const float* sph,
+                                               const Shade& sh, const V3 (&dir)[kChunk],
+                                               const float (&dds)[kChunk], unsigned live) {
+  for (int base = 0; base < o.rows; base += kThreads) {
+    if (!__syncthreads_or(live != 0u)) break;  // block-uniform, and the barrier
+    const int m = load_tile(tile, tbl, o.cols, o.rows, base);
+    __syncthreads();
+    for (int i = 0; i < m && live; ++i) {
+      const float* R = tile + i * o.cols;
+      if (!casts_shadow(P, R, o.mcol)) continue;
+      const OccRow w = occ_row_invariants(R, o.ecol, sh.sstart);
+      const bool quad = base + i < P.n_quads;
+      unsigned hit = 0u;
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        hit |= (unsigned)occ_row_sample(w, quad, dir[k], dds[k], sh.radius_sq) << k;
+      live &= ~hit;
+    }
+  }
+  for (int i = 0; i < P.n_sph && live; ++i) {
+    const float* Sp = sph + i * kSphCols;
+    if (Sp[7] == -1.0f) continue;  // glass casts no shadow
+    const OccSph w = occ_sph_invariants(Sp, sh.sstart);
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (((live >> k) & 1u) && occ_sph_sample(w, dir[k], dds[k], sh.radius_sq))
+        live &= ~(1u << k);
+  }
+  return live;
+}
 
 __global__ void __launch_bounds__(kThreads)
     render_fwd_streamed_kernel(const float* __restrict__ g_tri, const float* __restrict__ g_sph,
@@ -192,31 +254,33 @@ __global__ void __launch_bounds__(kThreads)
       sh = shade_setup(P, light, sel(prim_diffuse, ph.pos, term_pos),
                        sel(prim_diffuse, ph.nrm, term_nrm));
     Rng rng = rng_seed(gid);
-    float lit = (float)S;
-    for (int s = 0; s < S; ++s) {
-      float dds = 0.0f;
-      V3 dir = sh.sdir;
-      if (shading) sample_dir(P, rng.s0, rng.s1, rng.s2, sh.sdir, sh.radius_sq, dir, dds);
-      // this ray still looks for the sample's first occluder
-      bool seeking = shading;
-      for (int base = 0; base < occ.rows; base += kThreads) {
-        if (!__syncthreads_or(seeking)) break;  // block-uniform, and the barrier
-        const int n = load_tile(tile, occ_tbl, occ.cols, occ.rows, base);
-        __syncthreads();
-        if (seeking)
-          for (int i = 0; i < n; ++i) {
-            const float* R = tile + i * occ.cols;
-            if (!casts_shadow(P, R, occ.mcol)) continue;
-            if (occ_row(R, occ.ecol, base + i < P.n_quads, sh.sstart, dir, dds, sh.radius_sq)) {
-              seeking = false;
-              break;
-            }
-          }
+    int dark = 0;
+    for (int s0 = 0; s0 < S; s0 += kChunk) {
+      const int n = min(kChunk, S - s0);
+      V3 dir[kChunk];
+      float dds[kChunk];
+      // the chunk's n samples; the loops end at n (the same for every lane)
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        if (k >= n) break;
+        dir[k] = sh.sdir;
+        dds[k] = 0.0f;
+        if (shading)
+          sample_dir(P, rng.s0, rng.s1, rng.s2, sh.sdir, sh.radius_sq, dir[k], dds[k]);
       }
-      // seeking: no row occluded it, the spheres remain
-      if (shading && (!seeking || occ_spheres(P, sph, sh.sstart, dir, dds, sh.radius_sq)))
-        lit = lit - 1.0f;
+      // the chunk's samples that no row has occluded yet
+      unsigned live = shading ? (1u << n) - 1u : 0u;
+      // n is the same for every thread of the block: one instance a size
+      static_assert(kChunk == 4, "a case for each chunk size below kChunk");
+      switch (n) {
+        case 1: live = unoccluded<1>(P, tile, occ_tbl, occ, sph, sh, dir, dds, live); break;
+        case 2: live = unoccluded<2>(P, tile, occ_tbl, occ, sph, sh, dir, dds, live); break;
+        case 3: live = unoccluded<3>(P, tile, occ_tbl, occ, sph, sh, dir, dds, live); break;
+        default: live = unoccluded<kChunk>(P, tile, occ_tbl, occ, sph, sh, dir, dds, live);
+      }
+      if (shading) dark += n - __popc(live);
     }
+    const float lit = (float)(S - dark);
     V3 color = make(0.0f, 0.0f, 0.0f);
     float lit_rec = 0.0f;
     if (shading) {

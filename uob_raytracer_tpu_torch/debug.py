@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -132,26 +133,44 @@ def mirror_box(scene):
         yaw=torch.tensor(np.pi / 2, dtype=torch.float32, device=dev))
 
 
+# Every kernel wrapper's launch counter: (kernel, module under kernels/,
+# counter).
+_COUNTERS = (
+    ("K1/K1r render_fwd_kernel", "render_fwd", "LAUNCHES"),
+    ("K3f render_fwd_streamed_kernel", "render_fwd", "STREAMED_LAUNCHES"),
+    ("K2/K2'/K2 deep render_bwd_kernel", "render_bwd", "LAUNCHES"),
+    ("K2f render_bwd_free_kernel", "render_bwd", "FREE_LAUNCHES"),
+    ("K3b/K3b deep render_bwd_streamed_kernel", "render_bwd",
+     "STREAMED_LAUNCHES"),
+    ("segment_sum_tiles_kernel + segment_sum_runs_kernel", "render_bwd",
+     "SEGMENT_SUM_LAUNCHES"),
+    ("K4 nearest_tris_kernel", "partial", "NEAREST_LAUNCHES"),
+    ("K5 occluded_tris_kernel", "partial", "OCCLUDED_LAUNCHES"),
+    ("K6 peak_chain", "peak", "LAUNCHES"),
+    ("census_probe_kernel", "peak", "PROBE_LAUNCHES"),
+    ("floor_kernel (the launch floor)", "peak", "FLOOR_LAUNCHES"),
+    ("K7f bwd_twin_free_kernel", "bwd_twin", "FREE_LAUNCHES"),
+    ("K7c bwd_twin_chain_kernel", "bwd_twin", "LAUNCHES"),
+)
+
+
+def _module(name: str):
+    return importlib.import_module(f"{__package__}.kernels.{name}")
+
+
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, by kernel."""
-    from .kernels import bwd_twin, partial, peak, render_bwd, render_fwd
-    return {
-        "K1/K1r render_fwd_kernel": render_fwd.LAUNCHES,
-        "K3f render_fwd_streamed_kernel": render_fwd.STREAMED_LAUNCHES,
-        "K2/K2'/K2 deep render_bwd_kernel": render_bwd.LAUNCHES,
-        "K2f render_bwd_free_kernel": render_bwd.FREE_LAUNCHES,
-        "K3b/K3b deep render_bwd_streamed_kernel":
-            render_bwd.STREAMED_LAUNCHES,
-        "segment_sum_tiles_kernel + segment_sum_runs_kernel":
-            render_bwd.SEGMENT_SUM_LAUNCHES,
-        "K4 nearest_tris_kernel": partial.NEAREST_LAUNCHES,
-        "K5 occluded_tris_kernel": partial.OCCLUDED_LAUNCHES,
-        "K6 peak_chain": peak.LAUNCHES,
-        "census_probe_kernel": peak.PROBE_LAUNCHES,
-        "floor_kernel (the launch floor)": peak.FLOOR_LAUNCHES,
-        "K7f bwd_twin_free_kernel": bwd_twin.FREE_LAUNCHES,
-        "K7c bwd_twin_chain_kernel": bwd_twin.LAUNCHES,
-    }
+    return {k: getattr(_module(m), a) for k, m, a in _COUNTERS}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by kernel, as ``launch_counts`` names them) to the
+    wrappers' launch counters: the launches a replayed CUDA graph makes
+    without calling the wrappers."""
+    for k, m, a in _COUNTERS:
+        if counts.get(k):
+            mod = _module(m)
+            setattr(mod, a, getattr(mod, a) + counts[k])
 
 
 def _cotangent(cfg, device, seed: int):

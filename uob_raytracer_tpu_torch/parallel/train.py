@@ -12,6 +12,28 @@ gradients summed over the ranks by one all-reduce
 rank of a dp mesh, a step on a CUDA scene is one launch of a fused forward
 kernel (with its decision record) and one of a path-replay backward
 kernel, followed on a large scene by its segmented sum.
+
+On one CUDA device (``mesh=None`` or 1x1) with the fused backend,
+``train_step`` replays its step as one CUDA graph: the host then spends
+under a millisecond a step where the eager step's ~330 operations, driven
+by Python and the autograd engine, took 6-12 ms and set the pace of the
+card. The first call with a key (``_key``: the config, the learning
+rate, the trainable leaves, the backend, and the shape, dtype and device
+of every leaf and of the target) runs eagerly, which warms up what the
+step initialises lazily; the second captures the whole step body
+(``_step``: the forward kernel, the loss, ``torch.autograd.grad`` with the
+backward on the autograd engine's device thread, the SGD update) on a side
+stream with its own memory pool and replays it; later calls replay. Each
+call copies the scene's 15 leaves and the target into the graph's inputs,
+and the updated leaves and the loss out into fresh tensors, so any scene
+of the key's shapes gives the eager step's answer, bit for bit (the same
+kernels on the same inputs in the same order), and a returned scene never
+changes afterwards. One graph is kept: a new key drops the old one and its
+pool. A capture that fails raises. Meshes of several ranks (whose
+collectives run eagerly), CPU scenes and ``backend='torch'`` run eagerly,
+as does ``fit``. The counters ``train.eager``, ``train.graph.capture`` and
+``train.graph.replay`` (``tracing.count``) say which a step took; a replay
+adds the captured step's launches to the kernels' launch counters.
 """
 from __future__ import annotations
 
@@ -22,8 +44,10 @@ import torch
 
 from .. import tracing
 from ..config import RenderConfig
+from ..debug import add_launches, launch_counts
+from ..render import _LEAVES, _resolve_backend
 from ..scene import Scene
-from .render import render_image_sharded
+from .render import _check_mesh, render_image_sharded
 
 # Scene leaves that may receive gradient updates in the demo optimizer.
 # (Vertices, materials, light and camera — the BASELINE config-5 parameter
@@ -65,20 +89,105 @@ def _with_params(scene: Scene, names) -> tuple[Scene, dict]:
     return dataclasses.replace(scene, **params), params
 
 
+def _step(scene: Scene, target: torch.Tensor, cfg: RenderConfig, mesh,
+          lr: float, trainable, backend: str) -> TrainOut:
+    """The body of one SGD step, eager or under capture."""
+    live, params = _with_params(scene, trainable)
+    loss = image_loss(live, target, cfg, mesh, backend)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    new = {k: (p - lr * g).detach()
+           for (k, p), g in zip(params.items(), grads)}
+    return TrainOut(scene=dataclasses.replace(scene, **new),
+                    loss=loss.detach())
+
+
+def graphs(device: torch.device, mesh, fused: bool) -> bool:
+    """Whether ``train_step`` replays a CUDA graph for a scene on
+    ``device``: a CUDA device, no mesh (or a 1x1 one), the fused path."""
+    return (device.type == "cuda" and (mesh is None or mesh.world == 1)
+            and fused)
+
+
+def _key(scene: Scene, target: torch.Tensor, cfg: RenderConfig, lr: float,
+         trainable, backend: str) -> tuple:
+    """What a captured step is valid for."""
+    return (cfg, lr, tuple(trainable), backend,
+            tuple((tuple(t.shape), t.dtype, t.device)
+                  for t in [getattr(scene, k) for k in _LEAVES] + [target]))
+
+
+class _Graph:
+    """One key's step: after its eager first call (``graph`` None), the
+    captured step, its static inputs (the 15 leaves and the target), its
+    outputs (the updated leaves and the loss, flat) and the kernel
+    launches it holds."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.graph = None
+
+    def capture(self, scene: Scene, target: torch.Tensor, cfg: RenderConfig,
+                lr: float, trainable, backend: str) -> None:
+        self.inputs = [getattr(scene, k).clone() for k in _LEAVES]
+        self.inputs.append(target.clone())
+        static = Scene(**dict(zip(_LEAVES, self.inputs)))
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            out = _step(static, self.inputs[-1], cfg, None, lr, trainable,
+                        backend)
+            parts = [getattr(out.scene, k) for k in trainable] + [out.loss]
+            self.flat = torch.cat([t.reshape(-1) for t in parts])
+        self.launches = {k: n - before[k]
+                         for k, n in launch_counts().items()
+                         if n != before[k]}
+        self.names = tuple(trainable)
+        self.shapes = [t.shape for t in parts]
+        self.sizes = [t.numel() for t in parts]
+        self.graph = graph
+
+    def replay(self, scene: Scene, target: torch.Tensor) -> TrainOut:
+        torch._foreach_copy_(self.inputs,
+                             [getattr(scene, k) for k in _LEAVES] + [target])
+        self.graph.replay()
+        parts = [t.view(shape) for t, shape in zip(
+            self.flat.clone().split(self.sizes), self.shapes)]
+        return TrainOut(scene=dataclasses.replace(
+            scene, **dict(zip(self.names, parts))), loss=parts[-1])
+
+
+_graph: _Graph | None = None     # the one key whose step is kept
+
+
 def train_step(scene: Scene, target: torch.Tensor, cfg: RenderConfig,
                mesh=None, lr: float = 1e-2,
                trainable: tuple[str, ...] = TRAINABLE,
                backend: str = "auto") -> TrainOut:
     """One SGD step on the selected scene leaves. On a mesh every rank
-    calls it with the same arguments and returns the same scene."""
+    calls it with the same arguments and returns the same scene. On one
+    CUDA device with the fused backend the step is a CUDA graph from the
+    second call with the same key on (see the module's docstring)."""
+    global _graph
     with tracing.span("rt.train_step", step=True):
-        live, params = _with_params(scene, trainable)
-        loss = image_loss(live, target, cfg, mesh, backend)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        new = {k: (p - lr * g).detach()
-               for (k, p), g in zip(params.items(), grads)}
-        return TrainOut(scene=dataclasses.replace(scene, **new),
-                        loss=loss.detach())
+        if not graphs(scene.device, _check_mesh(mesh, scene),
+                      _resolve_backend(backend, scene) == "fused"):
+            out = _step(scene, target, cfg, mesh, lr, trainable, backend)
+            tracing.count("train.eager")
+            return out
+        key = _key(scene, target, cfg, lr, trainable, backend)
+        if _graph is None or _graph.key != key:
+            _graph = None           # frees the old graph's pool first
+            out = _step(scene, target, cfg, None, lr, trainable, backend)
+            _graph = _Graph(key)
+            tracing.count("train.eager")
+            return out
+        if _graph.graph is None:        # raises where the capture fails
+            _graph.capture(scene, target, cfg, lr, trainable, backend)
+            tracing.count("train.graph.capture")
+        else:
+            add_launches(_graph.launches)
+            tracing.count("train.graph.replay")
+        return _graph.replay(scene, target)
 
 
 # The BASELINE config-5 parameter set with per-leaf Adam learning rates:

@@ -11,10 +11,14 @@ Tests marked ``cuda`` hold the replayed step bit for bit to the eager body
 streamed kernels on ``dense_scene(600)``; the whole-table forward and
 backward in one launch on the Cornell box at 64x64; the backward split
 into the chain-free and the chain launch at 512x512 with 2x2 AA, 2^20
-rays), and check that a scene other than the last one returned, and a new
-target, give the eager step's answer; that a returned scene never changes
-afterwards; that a new key recaptures; and that the profiler names the
-streamed kernels of a replay. They skip without a card."""
+rays, at 3 samples and 2 bounces and at the reference's 10 and 10), and
+check that a scene other than the last one returned, and a new target,
+give the eager step's answer; that a returned scene never changes
+afterwards; that a new key recaptures; that the profiler names the
+streamed kernels of a replay; and that a replay reports the gauge
+``bwd.chain_pixels`` of the eager step and of the record, which
+``tracing.drain()`` reads without counting a wait. They skip without a
+card."""
 import dataclasses
 import json
 
@@ -72,7 +76,10 @@ def test_cpu_steps_run_eagerly(backend):
     for _ in range(3):
         scene = train_step(scene, target, CFG, lr=LR,
                            trainable=("light_pos",), backend=backend).scene
-    assert tracing.drain()["counts"] == {"train.eager": 3}
+    counts = tracing.drain()["counts"]
+    # the fused route's plain backward also sets the chain launch's gauge
+    assert set(counts) - {"bwd.chain_pixels"} == {"train.eager"}
+    assert counts["train.eager"] == 3
     assert train._graph is None
 
 
@@ -164,6 +171,13 @@ ROUTES = {
                            bounces=2),
               ("K1/K1r render_fwd_kernel", "K2f render_bwd_free_kernel",
                "K2/K2'/K2 deep render_bwd_kernel")),
+    # the benchmark cell cornell_1024.fit's settings at a quarter of its rays
+    "split_s10_b10": (lambda d: trt.cornell_box(device=d),
+                      RenderConfig(width=512, height=512, shadow_samples=10,
+                                   bounces=10),
+                      ("K1/K1r render_fwd_kernel",
+                       "K2f render_bwd_free_kernel",
+                       "K2/K2'/K2 deep render_bwd_kernel")),
 }
 
 
@@ -290,3 +304,48 @@ def test_profiler_names_the_kernels_of_a_replay(cuda_device, tmp_path):
         got = [e for e in kernels if name in e.get("name", "")]
         assert len(got) == 2, (name, sorted({e["name"] for e in kernels}))
         assert all(float(e.get("dur", 0)) > 0 for e in got)
+
+
+def _gauge_of_the_record(scene, cfg) -> int:
+    from uob_raytracer_tpu_torch.kernels import render_bwd, render_fwd
+    _, _, res = render_fwd.render_fused_res(scene, cfg)
+    return int(render_bwd.chain_pixels(scene, cfg, res))
+
+
+@pytest.mark.cuda
+def test_a_replay_gauges_the_eager_steps_chain_pixels(cuda_device):
+    """Each call on the same scene: the eager step, the capture and two
+    replays all report the chain launch's pixels of that scene's record."""
+    from uob_raytracer_tpu_torch.kernels import render_bwd
+    scene, target, cfg, _ = _problem("split_s10_b10", cuda_device)
+    assert render_bwd.splits(cfg, cfg.height, 28)
+    want = _gauge_of_the_record(scene, cfg)
+    assert 0 < want < cfg.width * cfg.height
+    tracing.enable()
+    got = []
+    for _ in range(4):               # eager, capture, replay, replay
+        train_step(scene, target, cfg, lr=LR)
+        counts = tracing.drain()["counts"]
+        got.append((counts["bwd.chain_pixels"], counts.get("bwd.bands")))
+    assert got == [(want, 1)] * 4
+    assert got[0][0] == _gauge_of_the_record(scene, cfg)
+
+
+@pytest.mark.cuda
+def test_reading_the_gauge_counts_no_wait(cuda_device):
+    scene, target, cfg, _ = _problem("split_s10_b10", cuda_device)
+    for _ in range(2):               # eager, capture
+        train_step(scene, target, cfg, lr=LR)
+    want = _gauge_of_the_record(scene, cfg)
+    tracing.enable(waits=True)
+    for _ in range(3):
+        train_step(scene, target, cfg, lr=LR)
+    out = tracing.drain()            # before any synchronise
+    mode = torch.cuda.get_sync_debug_mode()
+    tracing.disable()
+    assert mode == 1                 # "warn" again after the read
+    assert {k for k in out["counts"] if k.startswith("waits.")} == set()
+    assert out["wait_sites"] == []
+    assert out["counts"]["bwd.chain_pixels"] == want
+    assert _steps(out["counts"]) == {"train.graph.replay": 3}
+    assert out["counts"]["bwd.bands"] == 3

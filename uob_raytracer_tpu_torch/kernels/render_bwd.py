@@ -22,12 +22,15 @@ the chain-free kernel runs every pixel none of whose rays bounces (no chain
 storage, so more blocks an SM) and lists the others, and the chain kernel
 runs the listed pixels, compacted, one thread per AA ray (``torch.cumsum`` of
 the per-block counts on the device turns the lists into offsets; nothing
-waits for the host). Past that one launch of the chain kernel runs every
-pixel. The streamed kernel (``csrc/render_bwd_streamed.cu``, the counterpart of
-``_bwd_kernel``'s ``streamed=True`` mode) takes any triangle count: it
-reads rows straight from device memory and writes each triangle's cotangent
-per ray and site (``dlane``); ``segment_sum`` then adds the sites of each
-triangle in a fixed order (a stable sort of the recorded ids and two small
+waits for the host). While ``tracing`` keeps gauges, the gauge
+``bwd.chain_pixels`` holds the last offset of each band, the pixels the
+chain launch walked, on the device: nothing reads it in the step. Past that
+one launch of the chain kernel runs every pixel. The streamed kernel
+(``csrc/render_bwd_streamed.cu``, the counterpart of ``_bwd_kernel``'s
+``streamed=True`` mode) takes any triangle count: it reads rows straight
+from device memory and writes each triangle's cotangent per ray and site
+(``dlane``); ``segment_sum`` then adds the sites of each triangle in a
+fixed order (a stable sort of the recorded ids and two small
 kernels; no float atomics, so two runs are bit-equal), while the few
 spheres and the camera keep per-block partial sums.
 
@@ -41,7 +44,9 @@ in row bands (``_row_bands``): the same kernel once per band, each band's
 table cotangents added in band order, one pull-back at the end.
 
 The kernel's plain torch version, ``render_replay_bwd_plain`` (torch
-autograd through ``ops.replay.replay_forward``), lives here beside it. For
+autograd through ``ops.replay.replay_forward``), lives here beside it; it
+sets the same gauge to ``chain_pixels``, the pixels the chain launch would
+walk by the record. For
 a scene on the CPU the wrapper runs that plain version; for a CUDA scene it
 launches the kernel or raises, and never falls back. ``LAUNCHES`` counts
 the whole-table chain kernel's launches (one per row band),
@@ -158,11 +163,24 @@ def _pull_back(outputs, leaves: Scene, cotangents) -> Scene:
 # The plain torch version
 # --------------------------------------------------------------------------
 
+def chain_pixels(scene: Scene, cfg: RenderConfig, res: Residuals):
+    """How many pixels of the record's rows the chain launch takes (0-d
+    int64): those with at least one AA ray whose bounce chain it replays
+    (``flops.chain_rays``: a primary hit on a specular or glass object, in
+    a config that bounces), the pixels the chain-free launch lists."""
+    from ..flops import chain_rays
+    ray = chain_rays(scene, cfg, res)
+    return ray.reshape(ray.shape[0], -1).any(dim=0).sum()
+
+
 def render_replay_bwd_plain(scene: Scene, cfg: RenderConfig, res: Residuals,
                             g, row0=None, rows: int | None = None,
                             return_primal: bool = False):
     """The plain torch version of ``render_replay_bwd``, on the scene's
-    device: torch autograd through ``replay_forward``."""
+    device: torch autograd through ``replay_forward``. While ``tracing``
+    keeps gauges, sets ``bwd.chain_pixels`` to ``chain_pixels``."""
+    if tracing.gauging():
+        tracing.gauge("bwd.chain_pixels", [chain_pixels(scene, cfg, res)])
     with torch.enable_grad():
         with tracing.span("rt.bwd.pack"):
             leaves = _detached(scene)
@@ -585,6 +603,7 @@ def _launch(scene: Scene, cfg: RenderConfig, res: Residuals, g, row0: int,
             counts = torch.empty((threads // THREADS,), dtype=torch.int32,
                                  device=dev)
     totals = None
+    walked = [] if split and tracing.gauging() else None
     tracing.count("bwd.bands", len(bands))
     for o, n in bands:
         with tracing.span("rt.bwd.launch"):
@@ -627,6 +646,8 @@ def _launch(scene: Scene, cfg: RenderConfig, res: Residuals, g, row0: int,
                         # blocks
                         off = torch.cumsum(counts[:partial_b.shape[0]], 0,
                                            dtype=torch.int32)
+                        if walked is not None:
+                            walked.append(off[-1])
                         err = launch["chain"](
                             *tables_g, bid_ptr, partial_b.data_ptr(), img_ptr,
                             chain_ptr, lists.data_ptr(), off.data_ptr(), ints,
@@ -654,6 +675,8 @@ def _launch(scene: Scene, cfg: RenderConfig, res: Residuals, g, row0: int,
             t + c for t, c in zip(totals, cot))
     if totals is None:      # no rows: nothing reaches the tables
         totals = tuple(torch.zeros_like(t) for t in (tri, sph, cam))
+    if walked is not None:
+        tracing.gauge("bwd.chain_pixels", walked)
 
     bar = _pull_back(list(tables), leaves, list(totals))
     return (bar, img) if return_primal else bar

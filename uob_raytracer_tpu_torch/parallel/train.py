@@ -32,8 +32,13 @@ changes afterwards. One graph is kept: a new key drops the old one and its
 pool. A capture that fails raises. Meshes of several ranks (whose
 collectives run eagerly), CPU scenes and ``backend='torch'`` run eagerly,
 as does ``fit``. The counters ``train.eager``, ``train.graph.capture`` and
-``train.graph.replay`` (``tracing.count``) say which a step took; a replay
-adds the captured step's launches to the kernels' launch counters.
+``train.graph.replay`` (``tracing.count``) say which a step took. The
+capture runs inside ``tracing.held()``, so a replay, which runs no Python,
+counts what the captured step counted (``tracing.repeat``): its kernels'
+launches on the launch counters, and while recording its counters
+(``bwd.bands``) and its gauges (``bwd.chain_pixels``, which names the
+graph's own tensor of the chain launch's offsets: a replay writes it anew,
+and only ``tracing.drain()`` reads it).
 """
 from __future__ import annotations
 
@@ -44,7 +49,6 @@ import torch
 
 from .. import tracing
 from ..config import RenderConfig
-from ..debug import add_launches, launch_counts
 from ..render import _LEAVES, _resolve_backend
 from ..scene import Scene
 from .render import _check_mesh, render_image_sharded
@@ -119,8 +123,8 @@ def _key(scene: Scene, target: torch.Tensor, cfg: RenderConfig, lr: float,
 class _Graph:
     """One key's step: after its eager first call (``graph`` None), the
     captured step, its static inputs (the 15 leaves and the target), its
-    outputs (the updated leaves and the loss, flat) and the kernel
-    launches it holds."""
+    outputs (the updated leaves and the loss, flat) and what it counted
+    (``tracing.held``)."""
 
     def __init__(self, key: tuple):
         self.key = key
@@ -132,15 +136,11 @@ class _Graph:
         self.inputs.append(target.clone())
         static = Scene(**dict(zip(_LEAVES, self.inputs)))
         graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(graph):
+        with tracing.held() as self.counted, torch.cuda.graph(graph):
             out = _step(static, self.inputs[-1], cfg, None, lr, trainable,
                         backend)
             parts = [getattr(out.scene, k) for k in trainable] + [out.loss]
             self.flat = torch.cat([t.reshape(-1) for t in parts])
-        self.launches = {k: n - before[k]
-                         for k, n in launch_counts().items()
-                         if n != before[k]}
         self.names = tuple(trainable)
         self.shapes = [t.shape for t in parts]
         self.sizes = [t.numel() for t in parts]
@@ -185,7 +185,7 @@ def train_step(scene: Scene, target: torch.Tensor, cfg: RenderConfig,
             _graph.capture(scene, target, cfg, lr, trainable, backend)
             tracing.count("train.graph.capture")
         else:
-            add_launches(_graph.launches)
+            tracing.repeat(_graph.counted)
             tracing.count("train.graph.replay")
         return _graph.replay(scene, target)
 

@@ -4,7 +4,10 @@ profiler's.
 
 ``span(name)`` marks a layer boundary (``rt.train_step``, ``rt.render``,
 ``rt.fwd.launch``, ``rt.bwd.segment_sum``, ...); ``count(name, n)`` adds to
-a counter there (``bwd.bands``). Three states:
+a counter there (``bwd.bands``); ``gauge(name, parts)`` keeps device tensors
+whose total is a size known only on the device (``bwd.chain_pixels``, the
+pixels the chain launch of the last backward walked), read once at
+``drain()``. Three states:
 
 - Off (the default), and no profiler recording: a span checks two flags and
   returns one shared null context. It records nothing, allocates nothing
@@ -36,10 +39,20 @@ caller blocks in ``torch.autograd.grad``, so the backward's spans nest in
 the caller's ``rt.train_step``. Spans that two threads hold open at once
 without nesting in time would be parented wrongly; the port opens none.
 
+A replayed CUDA graph runs no Python, so it counts nothing itself. The
+block that captures it runs inside ``held()``, which keeps what the block
+counted (its counters, its gauges and its kernels' launches) whether
+recording is on or not, and each replay hands that to ``repeat()``: the
+launches go to the kernels' launch counters, and while recording the
+counters are added and the gauges set again. A gauge held at the capture
+names the graph's own tensors, which every replay writes anew.
+
 Spans never read a tensor, never synchronise and never change what the
-program computes. The state is the process's, as the kernels' launch
-counters are; ``drain()`` reads those counters' deltas since ``enable()``
-and keeps no second count.
+program computes; a gauge is read on the host only by ``drain()``, with
+the sync-debug mode of ``enable(waits=True)`` set aside for that read, so
+it is never counted as a wait. The state is the process's, as the kernels'
+launch counters are; ``drain()`` reads those counters' deltas since
+``enable()`` and keeps no second count.
 """
 from __future__ import annotations
 
@@ -60,6 +73,8 @@ _on = False            # recording: enable() .. disable()
 _open: list = []       # the open spans, outermost first, every thread
 _records: list = []    # closed spans while recording
 _counts: dict = {}
+_gauges: dict = {}     # name -> [device tensors of one element]
+_held = None           # what held() keeps: counts, gauges, launches
 _sites: dict = {}      # (span, "file:line") -> waits
 _next_id = 0
 _next_step = 0
@@ -131,9 +146,59 @@ def span(name: str, step: bool = False):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while recording."""
+    """Add ``n`` to the counter ``name`` while recording, and inside
+    ``held()``."""
     if _on:
         _counts[name] = _counts.get(name, 0) + n
+    if _held is not None:
+        _held["counts"][name] = _held["counts"].get(name, 0) + n
+
+
+def gauging() -> bool:
+    """Whether a ``gauge`` would be kept: a caller builds its parts only
+    then."""
+    return _on or _held is not None
+
+
+def gauge(name: str, parts) -> None:
+    """Set the gauge ``name`` to the total of ``parts`` (tensors of one
+    integer element each, on any device), while recording and inside
+    ``held()``. The tensors are kept, not read: ``drain()`` reads them."""
+    if _on:
+        _gauges[name] = list(parts)
+    if _held is not None:
+        _held["gauges"][name] = list(parts)
+
+
+@contextlib.contextmanager
+def held():
+    """Keep what the ``with`` block counts, whether recording or not: it
+    yields a dict that holds, once the block ends, its ``counts``, its
+    ``gauges`` and its kernels' ``launches`` (deltas of
+    ``debug.launch_counts``). ``repeat`` adds them again."""
+    global _held
+    outer, before = _held, _launches()
+    got = {"counts": {}, "gauges": {}, "launches": {}}
+    _held = got
+    try:
+        yield got
+    finally:
+        _held = outer
+        got["launches"] = {k: n - before.get(k, 0)
+                           for k, n in _launches().items()
+                           if n != before.get(k, 0)}
+
+
+def repeat(got: dict) -> None:
+    """What a replay of the block that ``held()`` kept as ``got`` counts:
+    its launches to the kernels' launch counters, and while recording its
+    counters added and its gauges set."""
+    from .debug import add_launches
+    add_launches(got["launches"])
+    if _on:
+        for k, n in got["counts"].items():
+            _counts[k] = _counts.get(k, 0) + n
+        _gauges.update(got["gauges"])
 
 
 def _launches() -> dict:
@@ -160,6 +225,7 @@ def enable(waits: bool = False) -> None:
         raise RuntimeError("tracing is already enabled")
     _records.clear()
     _counts.clear()
+    _gauges.clear()
     _sites.clear()
     _launch_base.clear()
     _launch_base.update(_launches())
@@ -189,17 +255,34 @@ def disable() -> None:
         _waits = None
 
 
+def _read(parts) -> int:
+    """A gauge's total on the host: a copy a part (one on a frame of one
+    row band), which waits for the work that writes it and is not counted
+    as a wait."""
+    quiet = _waits is not None and _waits["mode"] is not None
+    if quiet:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        return sum(int(p) for p in parts)
+    finally:
+        if quiet:
+            torch.cuda.set_sync_debug_mode("warn")
+
+
 def drain() -> dict:
     """What was recorded since ``enable()`` or the last ``drain()``, which
     it clears: ``spans`` (closed ``Span`` records by start), ``counts`` (the
     counters, with each kernel's launches since then as
-    ``launches.<kernel>`` where they moved) and ``wait_sites`` ([span,
-    "file:line", waits])."""
+    ``launches.<kernel>`` where they moved, and each gauge set since then
+    read as its total) and ``wait_sites`` ([span, "file:line", waits])."""
     counts = dict(_counts)
     now = _launches()
     for k, v in now.items():
         if v != _launch_base.get(k, 0):
             counts[f"launches.{k}"] = v - _launch_base.get(k, 0)
+    for k, parts in _gauges.items():
+        counts[k] = _read(parts)
+    _gauges.clear()
     out = {"spans": sorted(_records, key=lambda r: r.start_ns),
            "counts": counts,
            "wait_sites": [[s, where, n] for (s, where), n in _sites.items()]}
